@@ -1,0 +1,1 @@
+"""Numerical ops and the hand-written CUDA kernels' wrappers."""

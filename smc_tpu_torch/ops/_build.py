@@ -1,0 +1,160 @@
+"""Build the hand-written Hopper kernels and load them with ctypes.
+
+The CUDA sources in ``smc_tpu_torch/csrc/`` have a plain C interface (no
+PyTorch headers), so each compiles in seconds. At first use every source is
+compiled by its own ``nvcc`` process, all started together, and the objects
+are linked into one shared library named by a hash of the sources and
+flags, in ``smc_tpu_torch/_build/`` (listed in ``.gitignore``). A changed
+source gives a new hash and so a rebuild. Nothing here runs at import.
+
+Every C launch entry point takes device pointers and the CUDA stream as
+``c_void_p`` and returns ``cudaGetLastError()`` after its launch; the
+wrappers raise when that is not 0.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+SOURCES = ("mm_exact.cu", "ladder.cu", "merge.cu")
+# IEEE expf/logf/division throughout: no --use_fast_math.
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+              "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    # theta, obs, s0, ll, b, n, n_ds, n_obs, dt, stream
+    "mm_exact_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
+    # d_ll, dg, partial, s1, s2, n, k, stream
+    "ladder_launch": (_P, _P, _P, _P, _P, _I, _I, _P),
+    # n -> the ladder grid's particle-tile extent (no launch)
+    "ladder_blocks": (_I,),
+    # offsets, ancestors, n, stream
+    "merge_launch": (_P, _P, _I, _P),
+}
+
+# Launches of each kernel since the last reset (plain ints; each wrapper
+# adds one right after its kernel launched, and nowhere else).
+launch_counts = {"mm_exact": 0, "ladder": 0, "merge": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+def _nvcc() -> str:
+    cands = [os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc")
+             if os.environ.get("CUDA_HOME") else None,
+             shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"]
+    for c in cands:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
+                       "the Hopper kernels are built from smc_tpu_torch/csrc "
+                       "at first use")
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    return BUILD_DIR / f"libsmc_kernels_{_digest()}.so"
+
+
+def build() -> Path:
+    """Compile (if the hashed library is missing) and return its path.
+    Raises with nvcc's stderr when a compile or the link fails. The ptxas
+    report (registers, shared memory, spills) is kept beside the library
+    as ``<library>.ptxas.txt``."""
+    lib = library_path()
+    if lib.exists():
+        return lib
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{lib.stem}.{os.getpid()}"
+    objs, procs = [], []
+    for name in SOURCES:
+        obj = BUILD_DIR / f"{tag}.{name}.o"
+        objs.append(obj)
+        procs.append(subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", str(CSRC / name), "-o", str(obj)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    reports = []
+    for name, p in zip(SOURCES, procs):
+        out, err = p.communicate()
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {name} "
+                               f"(exit {p.returncode}):\n{out}{err}")
+        reports.append(f"== {name}\n{out}{err}")
+    tmp = BUILD_DIR / f"{tag}.so"
+    link = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                           *map(str, objs)],
+                          capture_output=True, text=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"nvcc link failed (exit {link.returncode}):\n"
+                           f"{link.stdout}{link.stderr}")
+    for obj in objs:
+        obj.unlink()
+    Path(str(lib) + ".ptxas.txt").write_text("\n".join(reports))
+    os.replace(tmp, lib)
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def load() -> ctypes.CDLL:
+    """Build if needed, load once, and declare every entry point's types."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def build_seconds() -> float:
+    """Build (or find) and load the library; the seconds it took."""
+    t0 = time.perf_counter()
+    load()
+    return time.perf_counter() - t0
+
+
+def check(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
+                           f"cudaError {err}")
+
+
+def stream_ptr(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check_input(t: torch.Tensor, name: str, dtype: torch.dtype,
+                ndim: int, device: torch.device) -> None:
+    """Raise unless ``t`` is what a kernel takes: ``dtype``, ``ndim``
+    dimensions, contiguous, on ``device``."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name} must have {ndim} dims, got "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
