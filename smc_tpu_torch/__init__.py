@@ -4,9 +4,11 @@ Likelihood-tempered Sequential Monte Carlo with residual-systematic
 resampling and adaptive random-walk Metropolis mutation, on torch tensors.
 The JAX package ``smc_tpu`` beside it is the reference; nothing here imports
 it or JAX. Entry points run on CUDA unless the caller passes
-``device="cpu"``. On CUDA the likelihood (``method="pallas_exact"``), the
-gamma ladder and the ancestor build run on hand-written Hopper kernels
-(``smc_tpu_torch/csrc``); on the CPU their plain PyTorch versions run.
+``device="cpu"``. On CUDA the Michaelis-Menten likelihood
+(``method="pallas_exact"``), the block-Thomas factor and solves of the
+methanation DAE, the gamma ladder and the ancestor build run on hand-written
+Hopper kernels (``smc_tpu_torch/csrc``); on the CPU their plain PyTorch
+versions run.
 """
 import torch
 

@@ -15,6 +15,8 @@ import numpy as np
 import torch
 
 from smc_tpu_torch.config import resolve_device
+from smc_tpu_torch.models.methanation import (EST_DEFAULT, Conditions,
+                                              MethanationModel)
 from smc_tpu_torch.models.michaelis_menten import MichaelisMentenModel
 from smc_tpu_torch.priors import Prior
 from smc_tpu_torch.rng import TorchDraws
@@ -53,6 +55,24 @@ def mm_model_from_numpy(obs, s0, ts, prior, method: str = "rk4",
                                 prior=prior, method=method,
                                 substeps=substeps, est_sigma=est_sigma,
                                 sigma_fixed=float(sigma_fixed))
+
+
+def methanation_model_from_numpy(cond: Mapping, obs, prior,
+                                 est_idx=EST_DEFAULT, device="cuda",
+                                 **solver_kw) -> MethanationModel:
+    """A methanation model from ``cond`` (a mapping of the seven
+    ``Conditions`` fields as arrays), obs (5, n_data) in sccm and a prior: a
+    port ``Prior`` or a mapping of the five prior arrays. ``solver_kw`` are
+    further ``MethanationModel`` fields (nx, n_steps, jac_stride, ...)."""
+    dev = resolve_device(device)
+    if isinstance(prior, Mapping):
+        prior = prior_from_numpy(device=dev, **prior)
+    else:
+        prior = prior.to(dev)
+    return MethanationModel(
+        cond=Conditions.from_numpy(cond, dev),
+        obs=torch.as_tensor(np.asarray(obs, np.float32), device=dev),
+        prior=prior, est_idx=tuple(est_idx), **solver_kw)
 
 
 def state_to_numpy(state: SMCState) -> dict:

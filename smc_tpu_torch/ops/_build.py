@@ -27,7 +27,8 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("mm_exact.cu", "ladder.cu", "merge.cu")
+SOURCES = ("mm_exact.cu", "ladder.cu", "merge.cu", "thomas_factor.cu",
+           "thomas_apply.cu")
 # IEEE expf/logf/division throughout: no --use_fast_math.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -42,11 +43,17 @@ _SIGNATURES = {
     "ladder_blocks": (_I,),
     # offsets, ancestors, n, stream
     "merge_launch": (_P, _P, _I, _P),
+    # A, B, C, LU, Ms, nx, nb, cs, stream
+    "thomas_factor_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # LU, Ms, C, rhs, x, nx, nb, stream (factor column stride 8, then 7)
+    "thomas_apply_launch": (_P, _P, _P, _P, _P, _I, _I, _P),
+    "thomas_apply_tiled_launch": (_P, _P, _P, _P, _P, _I, _I, _P),
 }
 
 # Launches of each kernel since the last reset (plain ints; each wrapper
 # adds one right after its kernel launched, and nowhere else).
-launch_counts = {"mm_exact": 0, "ladder": 0, "merge": 0}
+launch_counts = {"mm_exact": 0, "ladder": 0, "merge": 0, "thomas_factor": 0,
+                 "thomas_apply": 0, "thomas_apply_tiled": 0}
 
 
 def reset_launch_counts() -> None:

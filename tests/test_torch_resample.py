@@ -122,6 +122,31 @@ def test_apply_is_bitwise_take():
             np.asarray(anc))
 
 
+@pytest.mark.parametrize("kind", ["gamma", "dominant", "half_zero"])
+def test_apply_bitwise_at_n_1000_below_the_reference_merge_threshold(kind):
+    """N = 1000, the methanation run's particle count: below 4096 the JAX
+    package takes its scatter-and-cumsum form and never its merge kernel,
+    while the port takes its merge (plain on the CPU) at every N. Same v0
+    and weights: the resampled particles and log-likelihoods must be the
+    same bits as ``jk.residual_systematic_apply`` gives."""
+    n = 1000
+    w = _weights(n, 77, kind)
+    rng = np.random.default_rng(5)
+    parts = rng.normal(size=(n, 5)).astype(np.float32)
+    lk = (rng.normal(size=n) * 100).astype(np.float32)
+    lk[11] = -np.inf
+    for seed in range(3):
+        key = jax.random.key(seed)
+        jp, jl = jk.residual_systematic_apply(
+            key, jnp.asarray(w), (jnp.asarray(parts), jnp.asarray(lk)))
+        v0 = torch.tensor(np.asarray(jax.random.uniform(key, ())))
+        tp, tl = tk.residual_systematic_apply(
+            v0, torch.from_numpy(w), torch.from_numpy(parts),
+            torch.from_numpy(lk))
+        np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
+        np.testing.assert_array_equal(tl.numpy(), np.asarray(jl))
+
+
 def test_counts_to_ancestors_matches_jax():
     counts = np.array([0, 3, 1, 0, 2, 0], np.int32)
     np.testing.assert_array_equal(

@@ -89,3 +89,75 @@ def assert_ll_close(got, want, theta, n_ds, n_obs, rtol):
     scale = np.maximum(np.abs(want[fin]),
                        _term_scale(theta[fin], want[fin], n_ds, n_obs))
     assert (err <= rtol * scale).all(), (err / scale).max()
+
+
+def methanation_pair(n_conditions=2, nx=11, seed=0, **solver_kw):
+    """The JAX methanation model and the port's (on the CPU) over the same
+    condition table and the same observations: the port's flows at the true
+    kinetics plus NumPy noise, handed to both as arrays. Building the JAX
+    model directly compiles nothing; ``MethanationModel.default`` would
+    compile a march just to make its observations."""
+    import jax.numpy as jnp
+    from smc_tpu.models import methanation as JM
+    from smc_tpu_torch.convert import methanation_model_from_numpy
+    from smc_tpu_torch.models import methanation as TM
+
+    cond = TM.condition_table_numpy(n_conditions, nx=nx)
+    prior = TM.methanation_prior(device="cpu")
+    tm = methanation_model_from_numpy(
+        cond, np.zeros((5, n_conditions), np.float32), prior, nx=nx,
+        device="cpu", **solver_kw)
+    truth = tm.simulate_flows(torch.tensor(TM.KIN_TRUE)).numpy()
+    rng = np.random.default_rng(seed)
+    obs = (truth + 5.0 * rng.normal(size=truth.shape)).astype(np.float32)
+    tm = methanation_model_from_numpy(cond, obs, prior, nx=nx, device="cpu",
+                                      **solver_kw)
+    jm = JM.MethanationModel(
+        cond=JM.Conditions(**{k: jnp.asarray(v) for k, v in cond.items()}),
+        obs=jnp.asarray(obs), prior=JM.methanation_prior(), nx=nx,
+        **solver_kw)
+    return jm, tm
+
+
+def jax_march_final_state(jm, theta):
+    """The JAX model's final DAE state (7, NX, N * n_data) for theta
+    (N, n_est): the steps of its ``_flows_batch_bl`` up to and including
+    the march, so the whole state can be compared and not only the outlet
+    row that the flows read."""
+    import jax.numpy as jnp
+    from smc_tpu.models import methanation as JM
+    from smc_tpu.ops.dae_fast import bdf_march_bl as j_march
+
+    n, nc = theta.shape[0], jm.cond.n_data
+    full = jnp.tile(jnp.asarray(jm.base_params, jnp.float32), (n, 1))
+    full = full.at[:, jnp.asarray(jm.est_idx)].set(jnp.asarray(theta))
+    kin_bl = jnp.repeat(full[:, :8].T, nc, axis=1)
+    condv = jnp.tile(jm._cond_vecs().T, (1, n))
+    y0 = JM.initial_guess(jm.cond, jm.nx)
+    y0 = jnp.tile(jnp.moveaxis(y0, 0, -1).transpose(1, 0, 2), (1, 1, n))
+    flags = JM._grid_flags(jm.nx).T[:, :, None]
+
+    def rows(y_m, y, y_p, yd):
+        return JM._rows_bl(y_m, y, y_p, yd, flags, condv, kin_bl)
+
+    return np.asarray(j_march(
+        rows, y0, jm._dts(), newton_iters=jm.newton_iters, pivot=jm.pivot,
+        analytic_jac=JM._analytic_full_jac(flags, condv, kin_bl),
+        jac_stride=jm.jac_stride, n_dense=jm._n_dense_eff,
+        reuse_iters=jm.reuse_iters, dense_tail=jm.dense_tail,
+        solver="thomas"))
+
+
+def torch_march_final_state(tm, theta):
+    """The port's counterpart of :func:`jax_march_final_state`."""
+    from smc_tpu_torch.ops.dae_fast import bdf_march_bl as t_march
+
+    theta = torch.as_tensor(theta)
+    full = theta.new_tensor(tm.base_params).repeat(theta.shape[0], 1)
+    full[:, list(tm.est_idx)] = theta
+    rows, jac, y0 = tm._lane_problem(full[:, :8])
+    return t_march(rows, y0, tm._dts(), newton_iters=tm.newton_iters,
+                   pivot=tm.pivot, analytic_jac=jac,
+                   jac_stride=tm.jac_stride, n_dense=tm._n_dense_eff,
+                   reuse_iters=tm.reuse_iters, dense_tail=tm.dense_tail,
+                   solver=tm.solver).numpy()
