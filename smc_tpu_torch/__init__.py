@@ -4,11 +4,13 @@ Likelihood-tempered Sequential Monte Carlo with residual-systematic
 resampling and adaptive random-walk Metropolis mutation, on torch tensors.
 The JAX package ``smc_tpu`` beside it is the reference; nothing here imports
 it or JAX. Entry points run on CUDA unless the caller passes
-``device="cpu"``. On CUDA the Michaelis-Menten likelihood
-(``method="pallas_exact"``), the block-Thomas factor and solves of the
-methanation DAE, the gamma ladder and the ancestor build run on hand-written
-Hopper kernels (``smc_tpu_torch/csrc``); on the CPU their plain PyTorch
-versions run.
+``device="cpu"``. On CUDA the Michaelis-Menten likelihoods
+(``method="pallas_exact"`` and ``"pallas"``), the block-Thomas factor and
+solves of the methanation DAE, the gamma ladder and the ancestor build run
+on hand-written Hopper kernels (``smc_tpu_torch/csrc``); on the CPU their
+plain PyTorch versions run. The hierarchical ensemble (``smc/ensemble.py``)
+and the SBC harness on it (``smc/sbc.py``) run D populations through the
+same kernels, one launch for all.
 """
 import torch
 
@@ -24,6 +26,10 @@ from smc_tpu_torch.smc.state import SMCState  # noqa: E402
 from smc_tpu_torch.smc.driver import (init_state,  # noqa: E402
                                       make_full_run_on_device, run_smc,
                                       run_smc_on_device, smc_step)
+from smc_tpu_torch.smc.ensemble import (init_ensemble,  # noqa: E402
+                                        make_ensemble_run,
+                                        run_ensemble_on_device,
+                                        run_ensemble_sweeps, take_datasets)
 from smc_tpu_torch.smc.kernels import (find_gamma,  # noqa: E402
                                        make_mutation_sweeper, mh_mutation,
                                        mutate, residual_systematic_apply)

@@ -110,3 +110,36 @@ def state_from_numpy(d: Mapping, device="cuda",
         dtype = torch.int32 if f in _INT_FIELDS else torch.float32
         fields[f] = torch.tensor(a, dtype=dtype, device=dev)
     return SMCState(key=draws, **fields)
+
+
+def _check_stacked(shapes: Mapping) -> None:
+    """Raise unless the shapes are an ensemble's: gamma (D,) and the same
+    leading D on every tensor field."""
+    if len(shapes["gamma"]) != 1:
+        raise ValueError("an ensemble state has per-dataset gamma (D,), got "
+                         f"shape {tuple(shapes['gamma'])}")
+    d = shapes["gamma"][0]
+    for f, shp in shapes.items():
+        want = {"particles": 3, "log_lik": 2}.get(f, 1)
+        if len(shp) != want or shp[0] != d:
+            raise ValueError(f"ensemble field {f} has shape {tuple(shp)}; "
+                             f"expected {want} dims with leading D = {d}")
+
+
+def ensemble_state_to_numpy(states: SMCState) -> dict:
+    """:func:`state_to_numpy` for a stacked ensemble state (leading dataset
+    axis D on every field; ``key`` is the one generator state)."""
+    _check_stacked({f: getattr(states, f).shape
+                    for f in STATE_FIELDS if f != "key"})
+    return state_to_numpy(states)
+
+
+def ensemble_state_from_numpy(d: Mapping, device="cuda",
+                              draws: Optional[object] = None) -> SMCState:
+    """:func:`state_from_numpy` for a stacked ensemble state: particles
+    (D, N, d), log_lik (D, N), every other field (D,). The JAX package's
+    per-dataset keys cannot be carried over: as there, ``draws`` (or the
+    bytes of ``key``) gives the ensemble's one ``Draws``."""
+    _check_stacked({f: np.shape(d[f]) for f in STATE_FIELDS
+                    if f != "key" and f in d})
+    return state_from_numpy(d, device=device, draws=draws)

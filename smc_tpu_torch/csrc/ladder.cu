@@ -23,6 +23,13 @@
 // from HBM once; the other candidate groups of a tile hit it in L2/L1.
 // -inf entries of d contribute exp(-inf * dg) = 0 because dg > 0; the
 // ragged tail is masked, not padded.
+//
+// The population axis: an ensemble holds B independent populations, each
+// with its own d (B, N) and its own increments dg (B, K). They ride grid z,
+// so one launch serves them all and a block's arithmetic is the same
+// whatever B is: B = 1 gives the bits of the single-population pass. (The
+// TPU kernel has no such axis: its scalar-memory operand cannot be tiled, so
+// the reference sends a vmapped ladder to its plain form.)
 #include <cuda_runtime.h>
 
 namespace {
@@ -39,7 +46,9 @@ ladder_partial_kernel(const float* __restrict__ d, const float* __restrict__ dg,
   const int lane = threadIdx.x & 31;
   const int k = blockIdx.y * kWarps + (threadIdx.x >> 5);
   if (k >= k_count) return;  // whole warps leave; no block barrier below
-  const float g = dg[k];
+  const size_t pop = blockIdx.z;
+  d += pop * n;
+  const float g = dg[pop * k_count + k];
   float a1[4] = {0.0f, 0.0f, 0.0f, 0.0f};
   float a2[4] = {0.0f, 0.0f, 0.0f, 0.0f};
   for (long long base = static_cast<long long>(blockIdx.x) * kTile; base < n;
@@ -64,7 +73,8 @@ ladder_partial_kernel(const float* __restrict__ d, const float* __restrict__ dg,
     s2 += __shfl_down_sync(0xffffffffu, s2, off);
   }
   if (lane == 0) {
-    float* out = partial + static_cast<size_t>(blockIdx.x) * 2 * k_count;
+    float* out =
+        partial + (pop * gridDim.x + blockIdx.x) * 2 * k_count;
     out[k] = s1;
     out[k_count + k] = s2;
   }
@@ -77,13 +87,15 @@ __global__ void ladder_final_kernel(const float* __restrict__ partial,
                                     int k_count) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= 2 * k_count) return;
+  const size_t pop = blockIdx.y;
+  partial += pop * n_blocks * 2 * k_count;
   float s = 0.0f;
   for (int b = 0; b < n_blocks; ++b)
     s += partial[static_cast<size_t>(b) * 2 * k_count + j];
   if (j < k_count)
-    s1[j] = s;
+    s1[pop * k_count + j] = s;
   else
-    s2[j - k_count] = s;
+    s2[pop * k_count + j - k_count] = s;
 }
 
 }  // namespace
@@ -96,20 +108,22 @@ extern "C" int ladder_blocks(int n) {
                                              : kMaxBlocks);
 }
 
-// d_ll (n,), dg (k,) -> s1, s2 (k,); partial is (ladder_blocks(n), 2, k)
-// scratch. All float32, contiguous, on the device of `stream`.
+// d_ll (b, n), dg (b, k) -> s1, s2 (b, k); partial is
+// (b, ladder_blocks(n), 2, k) scratch. All float32, contiguous, on the
+// device of `stream`; b <= 65535.
 extern "C" int ladder_launch(const float* d_ll, const float* dg, float* partial,
-                             float* s1, float* s2, int n, int k,
+                             float* s1, float* s2, int b, int n, int k,
                              void* stream) {
-  if (k == 0) return 0;
+  if (k == 0 || b == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n_blocks = ladder_blocks(n);
-  const dim3 grid(n_blocks, (k + kWarps - 1) / kWarps);
+  const dim3 grid(n_blocks, (k + kWarps - 1) / kWarps, b);
   ladder_partial_kernel<<<grid, kThreads, 0, s>>>(d_ll, dg, partial, n, k);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int threads = 128;
-  ladder_final_kernel<<<(2 * k + threads - 1) / threads, threads, 0, s>>>(
-      partial, s1, s2, n_blocks, k);
+  const dim3 final_grid((2 * k + threads - 1) / threads, b);
+  ladder_final_kernel<<<final_grid, threads, 0, s>>>(partial, s1, s2, n_blocks,
+                                                     k);
   return static_cast<int>(cudaGetLastError());
 }

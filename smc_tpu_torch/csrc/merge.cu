@@ -17,6 +17,10 @@
 // n = 1e5 at 3.35 TB/s; the probes hit the offsets in L1/L2 (400 KB at
 // n = 1e5, well inside the 50 MB L2), and the first probes of all threads
 // of a block touch the same few lines.
+//
+// The population axis: an ensemble's B independent offset ladders (B, n) ride
+// grid y, one launch for all; a slot's search is the same whatever B is, so
+// B = 1 gives the bits of the single-population launch.
 #include <cuda_runtime.h>
 
 namespace {
@@ -27,6 +31,8 @@ __global__ void __launch_bounds__(kThreads)
 merge_kernel(const int* __restrict__ offsets, int* __restrict__ anc, int n) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= n) return;
+  offsets += static_cast<size_t>(blockIdx.y) * n;
+  anc += static_cast<size_t>(blockIdx.y) * n;
   unsigned lo = 0, hi = static_cast<unsigned>(n);
   while (lo < hi) {  // first i with offsets[i] > j
     const unsigned mid = (lo + hi) >> 1;
@@ -40,12 +46,13 @@ merge_kernel(const int* __restrict__ offsets, int* __restrict__ anc, int n) {
 
 }  // namespace
 
-// offsets (n,) int32 sorted in [0, n] -> ancestors (n,) int32; contiguous,
-// on the device of `stream`.
-extern "C" int merge_launch(const int* offsets, int* anc, int n,
+// offsets (b, n) int32, each row sorted in [0, n] -> ancestors (b, n) int32;
+// contiguous, on the device of `stream`; b <= 65535.
+extern "C" int merge_launch(const int* offsets, int* anc, int b, int n,
                             void* stream) {
-  if (n == 0) return 0;
-  merge_kernel<<<(n + kThreads - 1) / kThreads, kThreads, 0,
-                 static_cast<cudaStream_t>(stream)>>>(offsets, anc, n);
+  if (n == 0 || b == 0) return 0;
+  const dim3 grid((n + kThreads - 1) / kThreads, b);
+  merge_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      offsets, anc, n);
   return static_cast<int>(cudaGetLastError());
 }

@@ -631,12 +631,16 @@ class MethanationModel:
         flows = torch.where(ok, flows, FAILURE_SENTINEL)
         return flows.movedim(1, 0)                         # (Nc, 5, nc)
 
-    def _ll_from_flows(self, flows: torch.Tensor, sigma: torch.Tensor):
+    def _ll_from_flows(self, flows: torch.Tensor, sigma: torch.Tensor,
+                       obs: Optional[torch.Tensor] = None):
         """flows (..., 5, n_data), sigma (...,) -> log-lik (...,): Gaussian
-        without the 2*pi constant; -inf where it is not finite."""
+        without the 2*pi constant; -inf where it is not finite. ``obs``
+        replaces the model's observations (anything that broadcasts against
+        ``flows``, such as one set per population of an ensemble)."""
+        obs = self.obs if obs is None else obs
         sigma_safe = torch.clamp_min(sigma, 1e-12)
-        resid = flows - self.obs
-        n_data = self.obs.shape[1]
+        resid = flows - obs
+        n_data = obs.shape[-1]
         ll = torch.sum(-(0.5 / sigma_safe[..., None, None] ** 2) * resid ** 2,
                        dim=(-1, -2)) - 5 * n_data * torch.log(sigma_safe)
         return torch.where(torch.isfinite(ll), ll, -torch.inf)
@@ -649,6 +653,12 @@ class MethanationModel:
         particle x condition batch runs through one lanes-major BDF march
         per chunk of ``particle_chunk`` particles.
         """
+        flows, sigma = self._flows_and_sigma(theta)
+        return self._ll_from_flows(flows, sigma), flows
+
+    def _flows_and_sigma(self, theta: torch.Tensor):
+        """theta (N, n_est) -> (flows (N, 5, n_data), sigma (N,)): the part
+        of the likelihood that does not read the observations."""
         n = theta.shape[0]
         full = theta.new_tensor(self.base_params).repeat(n, 1)
         full[:, list(self.est_idx)] = theta
@@ -665,7 +675,7 @@ class MethanationModel:
                 if n_pad else kin_b
             flows = torch.cat([self._flows_batch_bl(k)
                                for k in kin_p.split(chunk)])[:n]
-        return self._ll_from_flows(flows, sigma), flows
+        return flows, sigma
 
     # -- construction -------------------------------------------------------
     @staticmethod

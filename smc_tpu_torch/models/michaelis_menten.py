@@ -9,7 +9,13 @@ so that a configuration means the same likelihood in both:
 - ``"rk4"``: fixed-grid RK4 (ops/ode.py), the default;
 - ``"exact"``: the closed form S = Km W(z) with Lambert W (ops/lambertw.py);
 - ``"pallas_exact"``: the same closed form as one fused kernel, here the
-  hand-written CUDA kernel of ops/mm_cuda.py (its plain version on the CPU).
+  hand-written CUDA kernel ``csrc/mm_exact.cu`` behind ops/mm_cuda.py (its
+  plain version on the CPU);
+- ``"pallas"``: the fixed-step RK4 march as one fused kernel, here
+  ``csrc/mm_rk4.cu`` (its plain version on the CPU).
+
+:func:`make_mm_data_loglik` is the ensemble's likelihood: D populations,
+each with its own observations, in one call.
 """
 from __future__ import annotations
 
@@ -23,7 +29,9 @@ import torch
 
 from smc_tpu_torch.config import resolve_device
 from smc_tpu_torch.ops.lambertw import lambertw
-from smc_tpu_torch.ops.mm_cuda import mm_loglik_exact
+from smc_tpu_torch.ops.mm_cuda import (mm_loglik_exact,
+                                       mm_loglik_exact_batched,
+                                       mm_loglik_pallas)
 from smc_tpu_torch.ops.ode import rk4_grid
 from smc_tpu_torch.priors import Prior
 
@@ -35,7 +43,39 @@ MM_TRUE_NOISE = 0.02
 # S0 per dataset (index 0 repeats the S0 = 2.0 run with its own noise).
 MM_S0_LIST = (2.0, 0.1, 0.25, 0.5, 1.0, 2.0)
 
-METHODS = ("rk4", "exact", "pallas_exact")
+METHODS = ("rk4", "exact", "pallas_exact", "pallas")
+
+
+def _substrate(method: str, vmax, km, s0, ts, substeps: int):
+    """S (T, n_ds, N) on the grid ``ts`` for particles vmax, km (N,) and
+    initial substrates s0 (n_ds,): the closed form (``"exact"``) or the
+    fixed-grid RK4 march."""
+    s0 = s0[:, None]                                            # (n_ds, 1)
+    if method == "exact":
+        km_safe = torch.maximum(km, km.new_tensor(1e-8))
+        logz = (torch.log(s0 / km_safe)[None]
+                + (s0[None] - vmax[None, None, :]
+                   * ts[:, None, None]) / km_safe)              # (T, n_ds, N)
+        z = torch.exp(torch.clamp(logz, -60.0, 60.0))
+        return km_safe * lambertw(z)
+
+    def f(t, S):                                                # S (n_ds, N)
+        return -vmax * S / (km + S)
+    S0 = s0.expand(s0.shape[0], vmax.shape[0])
+    return rk4_grid(f, S0, ts, substeps=substeps)
+
+
+def _gaussian_ll(resid, sigma):
+    """resid (T, n_ds, ...), sigma (...) -> log-likelihood (...): summed
+    over time per dataset, then over datasets. sigma <= 0 -> -inf;
+    non-finite trajectories -> -inf, never NaN."""
+    n = resid.shape[0]
+    sigma_safe = torch.maximum(sigma, sigma.new_tensor(1e-12))
+    ll_ds = (-0.5 * n * (_LOG2PI + 2.0 * torch.log(sigma_safe))
+             - torch.sum(resid * resid, dim=0) / (2.0 * sigma_safe ** 2))
+    total = torch.sum(ll_ds, dim=0)
+    bad = (sigma <= 0.0) | ~torch.isfinite(total)
+    return torch.where(bad, total.new_tensor(-math.inf), total)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,7 +84,7 @@ class MichaelisMentenModel:
 
     obs: (n_ds, T) observed product concentrations; s0: (n_ds,) initial
     substrate; ts: (T,) shared observation grid (uniform for
-    ``pallas_exact``). All float32 on one device.
+    the two fused-kernel methods). All float32 on one device.
     """
 
     obs: torch.Tensor
@@ -124,40 +164,63 @@ class MichaelisMentenModel:
         """theta (N, d) -> (log_lik (N,), P_model (N, n_ds, T) or None).
 
         The particle axis is the last (fastest) axis of every intermediate.
-        ``pallas_exact`` returns no predictions.
+        ``pallas_exact`` and ``pallas`` return no predictions.
         """
         vmax, km = theta[:, 0], theta[:, 1]
         sigma = (theta[:, 2] if self.est_sigma
                  else torch.full_like(vmax, self.sigma_fixed))
         s0 = self.s0[:, None]                                   # (n_ds, 1)
-        if self.method == "pallas_exact":
-            theta3 = theta if self.est_sigma else torch.cat(
-                [theta, sigma[:, None]], dim=1)
-            return mm_loglik_exact(theta3.contiguous(), self.obs, self.s0,
-                                   self.dt), None
-        if self.method == "exact":
-            km_safe = torch.maximum(km, km.new_tensor(1e-8))
-            logz = (torch.log(s0 / km_safe)[None]
-                    + (s0[None] - vmax[None, None, :]
-                       * self.ts[:, None, None]) / km_safe)     # (T, n_ds, N)
-            z = torch.exp(torch.clamp(logz, -60.0, 60.0))
-            S = km_safe * lambertw(z)
-        else:
-            def f(t, S):                                        # S (n_ds, N)
-                return -vmax * S / (km + S)
-            S0 = s0.expand(self.s0.shape[0], theta.shape[0])
-            S = rk4_grid(f, S0, self.ts, substeps=self.substeps)
-        P_model = s0[None] - S                                  # (T, n_ds, N)
-        resid = self.obs.T[:, :, None] - P_model
-        n = self.obs.shape[1]
-        sigma_safe = torch.maximum(sigma, sigma.new_tensor(1e-12))
-        ll_ds = (-0.5 * n * (_LOG2PI + 2.0 * torch.log(sigma_safe))
-                 - torch.sum(resid * resid, dim=0) / (2.0 * sigma_safe ** 2))
-        total = torch.sum(ll_ds, dim=0)                         # (N,)
-        # sigma <= 0 -> -inf; non-finite trajectories -> -inf, never NaN.
-        bad = (sigma <= 0.0) | ~torch.isfinite(total)
-        ll = torch.where(bad, total.new_tensor(-math.inf), total)
+        if self.method in ("pallas", "pallas_exact"):
+            theta3 = (theta if self.est_sigma else torch.cat(
+                [theta, sigma[:, None]], dim=1)).contiguous()
+            if self.method == "pallas_exact":
+                return mm_loglik_exact(theta3, self.obs, self.s0,
+                                       self.dt), None
+            return mm_loglik_pallas(theta3, self.obs, self.s0, self.dt,
+                                    self.substeps), None
+        S = _substrate(self.method, vmax, km, self.s0, self.ts,
+                       self.substeps)                           # (T, n_ds, N)
+        P_model = s0[None] - S
+        ll = _gaussian_ll(self.obs.T[:, :, None] - P_model, sigma)
         return ll, P_model.permute(2, 1, 0)                     # (N, n_ds, T)
+
+
+def make_mm_data_loglik(ts, s0, method: str = "exact", substeps: int = 4):
+    """The hierarchical ensemble's data-sliced likelihood (smc/ensemble.py):
+    ``fn(theta (D, N, 3), obs (D, n_ds, T)) -> (ll (D, N), pred)`` for D
+    populations at once over the shared grid ``ts`` (T,) and initial
+    substrates ``s0`` (n_ds,), tensors on the run's device.
+
+    ``pallas_exact`` is one launch of ``csrc/mm_exact.cu`` for all D
+    populations; ``exact`` and ``rk4`` run the model's arithmetic on the
+    flattened D * N particles, each held against its population's
+    observations; ``pallas`` launches ``csrc/mm_rk4.cu`` once per population
+    (that kernel has no population axis).
+    """
+    if method not in METHODS:
+        raise NotImplementedError(
+            f"method {method!r} is not ported yet; one of {METHODS}")
+    dt = float((ts[1] - ts[0]).item())
+
+    def fn(theta, obs):
+        d, n = theta.shape[0], theta.shape[1]
+        if method == "pallas_exact":
+            ll = mm_loglik_exact_batched(
+                theta.contiguous(), obs.contiguous(),
+                s0[None].expand(d, -1).contiguous(), dt)
+            return ll, None
+        if method == "pallas":
+            return torch.stack([
+                mm_loglik_pallas(theta[i].contiguous(), obs[i].contiguous(),
+                                 s0, dt, substeps) for i in range(d)]), None
+        flat = theta.reshape(d * n, 3)
+        S = _substrate(method, flat[:, 0], flat[:, 1], s0, ts, substeps)
+        P_model = (s0[None, :, None] - S).reshape(S.shape[0], -1, d, n)
+        resid = obs.permute(2, 1, 0)[..., None] - P_model    # (T, n_ds, D, N)
+        return (_gaussian_ll(resid, theta[..., 2]),
+                P_model.permute(2, 3, 1, 0))                 # (D, N, n_ds, T)
+
+    return fn
 
 
 def generate_mm_pseudo_data(Vmax_true: float = MM_TRUE_VMAX,

@@ -27,8 +27,8 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("mm_exact.cu", "ladder.cu", "merge.cu", "thomas_factor.cu",
-           "thomas_apply.cu")
+SOURCES = ("mm_exact.cu", "mm_rk4.cu", "ladder.cu", "merge.cu",
+           "thomas_factor.cu", "thomas_apply.cu")
 # IEEE expf/logf/division throughout: no --use_fast_math.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -37,12 +37,14 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # theta, obs, s0, ll, b, n, n_ds, n_obs, dt, stream
     "mm_exact_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
-    # d_ll, dg, partial, s1, s2, n, k, stream
-    "ladder_launch": (_P, _P, _P, _P, _P, _I, _I, _P),
+    # theta, obs, s0, ll, n, n_ds, n_obs, substeps, h, h/2, h/6, stream
+    "mm_rk4_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P),
+    # d_ll, dg, partial, s1, s2, b, n, k, stream
+    "ladder_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     # n -> the ladder grid's particle-tile extent (no launch)
     "ladder_blocks": (_I,),
-    # offsets, ancestors, n, stream
-    "merge_launch": (_P, _P, _I, _P),
+    # offsets, ancestors, b, n, stream
+    "merge_launch": (_P, _P, _I, _I, _P),
     # A, B, C, LU, Ms, nx, nb, cs, stream
     "thomas_factor_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     # LU, Ms, C, rhs, x, nx, nb, stream (factor column stride 8, then 7)
@@ -52,8 +54,9 @@ _SIGNATURES = {
 
 # Launches of each kernel since the last reset (plain ints; each wrapper
 # adds one right after its kernel launched, and nowhere else).
-launch_counts = {"mm_exact": 0, "ladder": 0, "merge": 0, "thomas_factor": 0,
-                 "thomas_apply": 0, "thomas_apply_tiled": 0}
+launch_counts = {"mm_exact": 0, "mm_rk4": 0, "ladder": 0, "merge": 0,
+                 "thomas_factor": 0, "thomas_apply": 0,
+                 "thomas_apply_tiled": 0}
 
 
 def reset_launch_counts() -> None:

@@ -99,11 +99,13 @@ class Prior:
                      scale=f32(scale))
 
     # ---- kernels -------------------------------------------------------
-    def sample(self, gen, n: int, dtype=torch.float32) -> torch.Tensor:
+    def sample(self, gen, n, dtype=torch.float32) -> torch.Tensor:
         """(n, d) prior draws from the ``Draws`` object ``gen``: first the
-        uniforms, then the normals (the JAX package's split order)."""
-        u = gen.uniform((n, self.dim), dtype)
-        z = gen.normal((n, self.dim), dtype)
+        uniforms, then the normals (the JAX package's split order). ``n``
+        may be a tuple of leading sizes, e.g. (D, N) for an ensemble."""
+        shape = ((n,) if isinstance(n, int) else tuple(n)) + (self.dim,)
+        u = gen.uniform(shape, dtype)
+        z = gen.normal(shape, dtype)
         uni = self.low + u * (self.high - self.low)
         nor = self.loc + z * self.scale
         return torch.where(self.kind == UNIFORM, uni, nor)

@@ -7,6 +7,22 @@ the driver goes through a ``Draws`` object instead, in a fixed order:
 - per resampling: ``uniform(())`` (the systematic offset v0);
 - per mutation sweep: ``normal((n, d))`` then ``uniform((n,))``.
 
+An ensemble of D populations (smc/ensemble.py) draws from ONE ``Draws`` for
+all of them, each request with a leading D:
+
+- the prior draw: ``uniform((D, n, d))`` then ``normal((D, n, d))``;
+- per ensemble step: ``uniform((D,))`` (every population's v0);
+- per ensemble sweep: ``normal((D, n, d))`` then ``uniform((D, n))``.
+
+Population p reads row p of each. A population that has finished, or whose
+sweeps of a step are done, uses none of its rows, but the requests go on at
+the full D while any population still runs.
+
+SBC (smc/sbc.py) takes from the same ``Draws``, in this order: the prior
+draw of the R truths, ``uniform((R, d))`` then ``normal((R, d))``; the
+simulator's noise, one ``normal`` of the data's shape; the ensemble's draws
+as above; last ``uniform((R, n))``, whose argsort picks the rank subsample.
+
 ``TorchDraws`` backs it with a ``torch.Generator`` on the run's device. A
 test can back it with a replay of another stream (for example the JAX
 package's draws) to compare decisions that depend on random numbers.

@@ -62,12 +62,12 @@ def init_state(key, model, cfg: SMCConfig,
 
 def _resample(g, state: SMCState, cfg: SMCConfig):
     """Residual-systematic selection of (particles, log_lik); the offset v0
-    is the step's first draw."""
+    is the step's first draw (one per population for an ensemble state)."""
     if cfg.resampling not in ("residual_systematic", "ring"):
         raise NotImplementedError(
             f"resampling {cfg.resampling!r} is not ported yet; "
             "'residual_systematic' runs")
-    v0 = state.key.uniform((), torch.float32)
+    v0 = state.key.uniform(tuple(state.gamma.shape), torch.float32)
     return residual_systematic_apply(v0, g.weights, state.particles,
                                      state.log_lik)
 
@@ -81,7 +81,7 @@ def _advance(state: SMCState, g, m, cfg: SMCConfig) -> SMCState:
         n_gamma_reductions=g.n_reductions, mh_ratio=m.mh_ratio,
         total_lik_evals=state.total_lik_evals
         + (m.n_steps.to(torch.float32) * cfg.evals_per_sweep
-           * state.particles.shape[0]),
+           * state.n_particles),
         log_evidence=state.log_evidence + g.log_z_inc)
 
 

@@ -1,0 +1,249 @@
+"""Hierarchical multi-dataset SMC ensemble (PyTorch port of
+``smc_tpu.smc.ensemble``).
+
+D independent tempered-SMC populations, one per dataset, advance together:
+every tensor of the ``SMCState`` carries a leading dataset axis, and one
+ensemble step is one batched gamma search, one batched resampling and a
+batched mutation loop (smc/kernels.py), so each population keeps its own
+adaptive gamma schedule, early stop and step ratio while the device sees
+(D x N x ...) work. The JAX package gets this from ``jax.vmap`` of its
+single-population step; here the axis is written out, and nothing loops
+over D.
+
+- Populations whose tempering has finished are frozen whole-state by a
+  where-mask: they are still swept (the batched likelihood covers them),
+  but their state no longer changes.
+- Within a step, a population whose sweeps are done (early stop, or its
+  sweep limit) keeps its carry while the others go on.
+- The host waits for the device once per ensemble step (is any gamma below
+  1?) and once per ensemble sweep after the first (is any population still
+  active?); it never reads a per-population value.
+
+``loglik_fn(theta (D, N, d), data) -> (log_lik (D, N), aux)`` is batched
+over the populations (the JAX package's is per population, under vmap);
+``data`` carries the leading D and is passed through untouched. The
+ensemble draws from ONE ``Draws`` (rng.py gives the order), where the JAX
+package splits a key per dataset.
+
+PyTorch runs eagerly, so the JAX package's fused ``while_loop`` program and
+its sweep-granularity run are one loop here, with and without polling:
+:func:`make_ensemble_run` and :func:`run_ensemble_sweeps` give the same
+state from the same seed.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional, Tuple
+
+import torch
+
+from smc_tpu_torch.config import SMCConfig
+from smc_tpu_torch.priors import Prior
+from smc_tpu_torch.rng import as_draws
+from smc_tpu_torch.smc.driver import _advance, _resample, _stop_requested
+from smc_tpu_torch.smc.kernels import (MutationResult, _over, find_gamma,
+                                       make_mutation_sweeper)
+from smc_tpu_torch.smc.state import SMCState
+
+# loglik_fn(theta (D, N, d), data) -> (log_lik (D, N), aux)
+DataLogLik = Callable[[torch.Tensor, object], Tuple[torch.Tensor, object]]
+
+
+def _tensor_fields(state: SMCState):
+    return [f.name for f in dataclasses.fields(state) if f.name != "key"]
+
+
+def take_datasets(states: SMCState, idx) -> SMCState:
+    """Slice an ensemble state down to the datasets in ``idx`` (a list, an
+    index tensor or a boolean mask over the leading axis).
+
+    Every tensor field is gathered, so the result is a valid smaller
+    ensemble: each selected population keeps its particles, tempering
+    position and controller state, and can be continued with
+    ``run_ensemble_sweeps(..., states=take_datasets(...))`` on the same
+    slice of the data. ``key`` stays the ensemble's one ``Draws``: the
+    continued run draws at the smaller D. Compacting to the populations
+    still tempering saves the sweeps that the freeze mask would spend on
+    finished ones.
+    """
+    if states.gamma.dim() != 1:
+        raise ValueError(
+            "take_datasets expects an ensemble state (leading dataset "
+            "axis: per-dataset gamma is (D,), got ndim="
+            f"{states.gamma.dim()}); a single-run SMCState would be "
+            "silently sliced along the particle axis")
+    idx = torch.as_tensor(idx, device=states.gamma.device)
+    return states.replace(**{f: getattr(states, f)[idx]
+                             for f in _tensor_fields(states)})
+
+
+def init_ensemble(key, prior: Prior, loglik_fn: DataLogLik, data,
+                  n_datasets: int, cfg: SMCConfig) -> SMCState:
+    """Stacked SMCState with leading dataset axis D: the prior draw of all
+    D x N particles and the initial likelihood sweep. ``key`` is an int seed
+    or a ``Draws``; the run's device is the prior's."""
+    dev = prior.device
+    draws = as_draws(key, dev)
+    particles = prior.sample(draws, (n_datasets, cfg.n_particles), cfg.dtype)
+    log_lik, _ = loglik_fn(particles, data)
+
+    def per_pop(v, dtype=cfg.dtype):
+        return torch.full((n_datasets,), v, dtype=dtype, device=dev)
+    zi = per_pop(0, torch.int32)
+    return SMCState(
+        particles=particles, log_lik=log_lik, gamma=per_pop(0.0), key=draws,
+        step=zi, ess=per_pop(1.0), max_log_lik=torch.amax(log_lik, dim=-1),
+        n_mh=zi, accepted=zi, n_gamma_reductions=zi, mh_ratio=per_pop(1.0),
+        total_lik_evals=per_pop(float(cfg.n_particles), torch.float32),
+        log_evidence=per_pop(0.0))
+
+
+def _freeze(done: torch.Tensor, old: SMCState, new: SMCState) -> SMCState:
+    """``new`` with the populations flagged in ``done`` (D,) put back to
+    their ``old`` state, every tensor field."""
+    return new.replace(**{
+        f: torch.where(_over(done, getattr(old, f)), getattr(old, f),
+                       getattr(new, f)) for f in _tensor_fields(old)})
+
+
+def make_ensemble_sweep_fns(prior: Prior, loglik_fn: DataLogLik,
+                            n_datasets: int, cfg: SMCConfig):
+    """The pieces of one ensemble step, each bounded by at most one
+    mutation sweep of the whole ensemble (D x N likelihood rows).
+
+    Returns ``(einit, prep, mut_init, mut_sweep, finish)``:
+
+    - ``einit(key, data) -> states``: the stacked prior draw and the
+      initial likelihood sweep.
+    - ``prep(states) -> (key, k_mh, g, parts, lk)``: per-dataset gamma
+      search and resampling; no likelihood evaluation. ``key`` and ``k_mh``
+      are both the ensemble's ``Draws``.
+    - ``mut_init(k_mh, parts, lk, data) -> carry``: the mutation loop's
+      carry (no evaluation for rwm).
+    - ``mut_sweep(carry, gamma, data, active) -> carry``: ONE sweep of every
+      dataset; datasets with ``active[d]`` False keep their old carry.
+    - ``finish(states, key, g, carry) -> states``: fold the step in;
+      populations already at gamma >= 1 before the step are frozen
+      whole-state.
+    """
+    built = []          # [data, (init_fn, sweep_fn)] of the last data seen
+
+    def sweeper(data):
+        if not built or built[0] is not data:
+            built[:] = [data, make_mutation_sweeper(
+                cfg.mutation, lambda th: loglik_fn(th, data), prior, cfg)]
+        return built[1]
+
+    def einit(key, data):
+        return init_ensemble(key, prior, loglik_fn, data, n_datasets, cfg)
+
+    def prep(states: SMCState):
+        g = find_gamma(states.log_lik, states.gamma, cfg)
+        parts, lk = _resample(g, states, cfg)
+        return states.key, states.key, g, parts, lk
+
+    def mut_init(k_mh, parts, lk, data):
+        return sweeper(data)[0](k_mh, parts, lk)
+
+    def mut_sweep(c, gamma, data, active):
+        return sweeper(data)[1](c, gamma, active)
+
+    def finish(states: SMCState, key, g, c) -> SMCState:
+        m = MutationResult(c.particles, c.log_lik, c.j,
+                           torch.sum(c.r_ac, dim=-1), c.mh_ratio)
+        new = _advance(states.replace(key=key), g, m, cfg)
+        return _freeze(states.gamma >= 1.0, states, new)
+
+    return einit, prep, mut_init, mut_sweep, finish
+
+
+def _running(states: SMCState, cfg: SMCConfig) -> bool:
+    """The loop condition, read from the device once per ensemble step."""
+    return bool(torch.any((states.gamma < 1.0)
+                          & (states.step < cfg.max_steps)).item())
+
+
+def _run(states: SMCState, data, fns, cfg: SMCConfig, n_datasets: int,
+         verbose: bool = False, callback=None, stop_file=None) -> SMCState:
+    """The ensemble loop behind both entry points. The first sweep of a
+    step needs no read (the step runs because some population is below
+    gamma = 1, and that one is active); every later sweep is preceded by
+    one read of ``any(active)``."""
+    _, prep, mut_init, mut_sweep, finish = fns
+    while _running(states, cfg):
+        if _stop_requested(stop_file):
+            print(f"run_ensemble_sweeps: stop file {stop_file} present — "
+                  f"returning at max step {int(states.step.max())}",
+                  flush=True)
+            return states
+        key, k_mh, g, parts, lk = prep(states)
+        n_mh = torch.where(g.gamma >= 1.0, cfg.mh_steps_final, cfg.mh_steps)
+        frozen = states.gamma >= 1.0
+        c = mut_init(k_mh, parts, lk, data)
+        first = True
+        while True:
+            # Polled between sweeps too; the pre-step states go back, so
+            # the caller gets the last COMPLETED step either way.
+            if _stop_requested(stop_file):
+                print(f"run_ensemble_sweeps: stop file {stop_file} present "
+                      f"mid-step — returning last completed step "
+                      f"{int(states.step.max())}", flush=True)
+                return states
+            active = ~c.done & (c.j < n_mh) & ~frozen
+            if not first and not bool(active.any().item()):
+                break
+            c = mut_sweep(c, g.gamma, data, active)
+            first = False
+        states = finish(states, key, g, c)
+        if verbose:
+            ng = states.gamma.cpu()
+            print(f"ensemble step: {int(states.step.max())}  "
+                  f"gamma<1: {int((ng < 1.0).sum())}/{n_datasets}  "
+                  f"min gamma: {float(ng.min()):.6f}", flush=True)
+        if callback is not None:
+            callback(states)
+    return states
+
+
+def run_ensemble_sweeps(key, prior: Prior, loglik_fn: DataLogLik, data,
+                        n_datasets: int, cfg: SMCConfig,
+                        verbose: bool = False, callback=None,
+                        states: Optional[SMCState] = None,
+                        stop_file=None) -> SMCState:
+    """Host-observed ensemble run. ``callback(states)`` fires after every
+    ensemble step (the checkpointing hook of long SBC runs); pass ``states``
+    to resume. ``stop_file``: as in ``run_smc``, polled before every step
+    and every sweep; when the file appears the run returns the last
+    completed ensemble step instead of tempering every population to
+    gamma = 1. ``verbose`` prints one line per ensemble step."""
+    fns = make_ensemble_sweep_fns(prior, loglik_fn, n_datasets, cfg)
+    if states is None:
+        states = fns[0](key, data)
+    return _run(states, data, fns, cfg, n_datasets, verbose=verbose,
+                callback=callback, stop_file=stop_file)
+
+
+def make_ensemble_run(prior: Prior, loglik_fn: DataLogLik, n_datasets: int,
+                      cfg: SMCConfig, mesh=None):
+    """``fn(key, data) -> SMCState``: all D populations from the prior draw
+    to gamma = 1 (or ``max_steps``) in one call, without printing or
+    polling. Build once, call with fresh keys and data. ``mesh`` other than
+    None is not ported."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh is not ported yet (ROADMAP Queue 1 item 12: multi-GPU); "
+            "the ensemble runs on one device")
+    fns = make_ensemble_sweep_fns(prior, loglik_fn, n_datasets, cfg)
+
+    def run(key, data) -> SMCState:
+        return _run(fns[0](key, data), data, fns, cfg, n_datasets)
+
+    return run
+
+
+def run_ensemble_on_device(key, prior: Prior, loglik_fn: DataLogLik, data,
+                           n_datasets: int, cfg: SMCConfig,
+                           mesh=None) -> SMCState:
+    """One-shot convenience over :func:`make_ensemble_run`."""
+    return make_ensemble_run(prior, loglik_fn, n_datasets, cfg, mesh)(
+        key, data)

@@ -5,6 +5,13 @@ Every function takes and returns tensors on the run's device and never waits
 for it, except the mutation loop, which reads one flag per sweep. On CUDA the
 gamma ladder runs on ``csrc/ladder.cu``, the ancestor build on
 ``csrc/merge.cu``, and the likelihood wherever the model puts it.
+
+Every function also takes an ensemble: D independent populations on a
+leading axis (particles (D, N, d), log_lik (D, N), one gamma, offset draw,
+step ratio and stop latch per population, (D,)). Nothing loops over D: the
+reductions run along the particle axis, the two kernels take the axis in
+their grids, and the bundle gather is one flat ``index_select``. The JAX
+package gets the same from ``jax.vmap`` of the single-population functions.
 """
 from __future__ import annotations
 
@@ -20,14 +27,22 @@ from smc_tpu_torch.priors import Prior
 
 
 def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """x[idx] for a 0-d index tensor, without reading idx on the host."""
-    return x.gather(0, idx.reshape(1))[0]
+    """x[..., idx] for an index tensor with x's leading dimensions (0-d for
+    one population), without reading idx on the host."""
+    return x.gather(-1, idx[..., None])[..., 0]
+
+
+def _over(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A per-population value with trailing singleton axes, so it
+    broadcasts against ``like``'s per-particle axes."""
+    return x.reshape(x.shape + (1,) * (like.dim() - x.dim()))
 
 
 # --------------------------------------------------------------------------
 # Adaptive tempering (gamma search)
 # --------------------------------------------------------------------------
 class GammaResult(NamedTuple):
+    # Shapes for one population; an ensemble adds a leading D to each.
     gamma: torch.Tensor        # () new tempering exponent
     weights: torch.Tensor      # (N,) normalized incremental weights
     ess: torch.Tensor          # () normalized ESS of the chosen candidate
@@ -40,7 +55,8 @@ class GammaResult(NamedTuple):
 
 def find_gamma(log_lik: torch.Tensor, gamma_old: torch.Tensor,
                cfg: SMCConfig) -> GammaResult:
-    """ESS-controlled tempering-exponent search.
+    """ESS-controlled tempering-exponent search for log_lik (N,) with
+    gamma_old (), or for an ensemble's (D, N) with (D,).
 
     The candidates gamma_k = gamma_old + (gamma0 - gamma_old) * rate^k,
     k = 0..gamma_reduction_iters, with gamma0 = min(gamma_old +
@@ -48,27 +64,29 @@ def find_gamma(log_lik: torch.Tensor, gamma_old: torch.Tensor,
     ladder pass (ops/ladder_cuda.py) and the first candidate whose
     normalized ESS exceeds ``ess_limit`` wins (the last one if none does).
     """
-    n = log_lik.shape[0]
-    max_ll = torch.max(log_lik)
-    d_ll = log_lik - max_ll                     # <= 0; exp never overflows
+    n = log_lik.shape[-1]
+    max_ll = torch.amax(log_lik, dim=-1)
+    d_ll = log_lik - max_ll[..., None]          # <= 0; exp never overflows
     gamma0 = torch.clamp_max(gamma_old + cfg.d_gamma_max, 1.0)
     ks = torch.arange(cfg.gamma_reduction_iters + 1, device=log_lik.device)
-    gammas = gamma_old + (gamma0 - gamma_old) * torch.pow(
-        cfg.gamma_reduction_rate, ks.to(d_ll.dtype))
-    n_cand = gammas.shape[0]
+    gammas = gamma_old[..., None] + (gamma0 - gamma_old)[..., None] \
+        * torch.pow(cfg.gamma_reduction_rate, ks.to(d_ll.dtype))
+    n_cand = gammas.shape[-1]
 
-    s1, s2 = ladder_stats(d_ll.contiguous(), gammas - gamma_old)
+    s1, s2 = ladder_stats(d_ll.contiguous(),
+                          (gammas - gamma_old[..., None]).contiguous())
     ess_all = (s1 * s1 / (s2 * n)).to(d_ll.dtype)
     ok = ess_all > cfg.ess_limit
     # argmax of the int cast picks the FIRST passing candidate.
-    idx = torch.where(ok.any(), torch.argmax(ok.to(torch.int32)),
-                      torch.full_like(ks[0], n_cand - 1)).to(torch.int32)
+    idx = torch.where(ok.any(dim=-1), torch.argmax(ok.to(torch.int32), dim=-1),
+                      torch.full_like(ks[0], n_cand - 1))
     gamma = _take(gammas, idx)
-    weights = torch.exp(d_ll * (gamma - gamma_old))
-    log_z = (gamma - gamma_old) * max_ll + torch.log(_take(s1, idx) / n)
-    weights = weights / torch.sum(weights)
-    return GammaResult(gamma, weights, _take(ess_all, idx), idx, max_ll,
-                       log_z.to(d_ll.dtype))
+    dg = gamma - gamma_old
+    weights = torch.exp(d_ll * dg[..., None])
+    log_z = dg * max_ll + torch.log(_take(s1, idx) / n)
+    weights = weights / torch.sum(weights, dim=-1, keepdim=True)
+    return GammaResult(gamma, weights, _take(ess_all, idx),
+                       idx.to(torch.int32), max_ll, log_z.to(d_ll.dtype))
 
 
 # --------------------------------------------------------------------------
@@ -86,31 +104,32 @@ _QBITS = 24
 
 def _rs_counts_offsets(v0: torch.Tensor, weights: torch.Tensor):
     """Offspring counts of residual-systematic resampling and their
-    exclusive prefix sum (the output slot offsets), both int32 (N,).
+    exclusive prefix sum (the output slot offsets), both int32, (N,) or for
+    an ensemble (D, N).
 
-    ``v0`` (a 0-d U[0, 1) draw) places the systematic grid {v0 + k}. The
-    grid points at or below the residual prefix sum are
-    (csum + 2^QBITS - v0q) >> QBITS; the offsets telescope from the two
-    prefix sums without a third. The quantization remainder (the total
-    off N by one or two) goes to the max-weight particle, never driving a
-    count negative.
+    ``v0`` (one U[0, 1) draw per population: 0-d, or (D,)) places the
+    systematic grid {v0 + k}. The grid points at or below the residual
+    prefix sum are (csum + 2^QBITS - v0q) >> QBITS; the offsets telescope
+    from the two prefix sums without a third. The quantization remainder
+    (the total off N by one or two) goes to the max-weight particle, never
+    driving a count negative.
     """
-    n = weights.shape[0]
+    n = weights.shape[-1]
     scaled = weights * n
     det = torch.floor(scaled)
     resid = scaled - det                          # [0, 1), exact fp32
     v0q = torch.floor(v0 * (1 << _QBITS)).to(torch.int64)
     q = torch.floor(resid * (1 << _QBITS)).to(torch.int64)
     det_i = det.to(torch.int64)
-    det_csum = torch.cumsum(det_i, 0)
-    bias = (1 << _QBITS) - v0q                    # in [1, 2^QBITS]
-    grid_below = (torch.cumsum(q, 0) + bias) >> _QBITS
+    det_csum = torch.cumsum(det_i, -1)
+    bias = ((1 << _QBITS) - v0q)[..., None]       # in [1, 2^QBITS]
+    grid_below = (torch.cumsum(q, -1) + bias) >> _QBITS
     grid_start = bias >> _QBITS                   # grid below cumsum 0
-    prev = torch.cat([grid_start.reshape(1), grid_below[:-1]])
+    prev = torch.cat([grid_start, grid_below[..., :-1]], dim=-1)
     counts = det_i + grid_below - prev
-    total = det_csum[-1] + grid_below[-1] - grid_start
-    fix = torch.argmax(weights)                   # first max
-    applied = torch.maximum(n - total, -_take(counts, fix))
+    total = det_csum[..., -1:] + grid_below[..., -1:] - grid_start
+    fix = torch.argmax(weights, dim=-1, keepdim=True)          # first max
+    applied = torch.maximum(n - total, -counts.gather(-1, fix))
     pos = torch.arange(n, device=weights.device)
     counts = counts + torch.where(pos == fix, applied, 0)
     offsets = (det_csum - det_i) + (prev - grid_start)
@@ -120,7 +139,8 @@ def _rs_counts_offsets(v0: torch.Tensor, weights: torch.Tensor):
 
 def residual_systematic_counts(v0: torch.Tensor,
                                weights: torch.Tensor) -> torch.Tensor:
-    """Per-particle offspring counts (N,) int32 summing exactly to N:
+    """Per-particle offspring counts (N,) int32 (per population) summing
+    exactly to N:
     floor(N w_i) deterministic copies plus the residual mass resampled
     systematically from the single offset ``v0``."""
     return _rs_counts_offsets(v0, weights)[0]
@@ -128,8 +148,8 @@ def residual_systematic_counts(v0: torch.Tensor,
 
 def residual_systematic_ancestors(v0: torch.Tensor,
                                   weights: torch.Tensor) -> torch.Tensor:
-    """Ancestor index per output slot (N,) int32, sorted: all copies of
-    particle i are contiguous, in i order."""
+    """Ancestor index per output slot (N,) int32 (per population), sorted:
+    all copies of particle i are contiguous, in i order."""
     return sorted_offsets_to_ancestors(_rs_counts_offsets(v0, weights)[1])
 
 
@@ -139,18 +159,26 @@ def residual_systematic_apply(v0: torch.Tensor, weights: torch.Tensor,
     """Resample (particles (N, d), log_lik (N,)) by residual-systematic
     ancestors: one ancestor build (csrc/merge.cu on CUDA) and one row
     gather of the (N, d + 1) bundle, bitwise equal to indexing each array
-    with the ancestors."""
+    with the ancestors. An ensemble ((D, N, d), (D, N), v0 (D,)) takes one
+    build and one gather too: population p's ancestors index the flattened
+    (D N, d + 1) bundle at ``anc + p N``."""
     anc = residual_systematic_ancestors(v0, weights).long()
-    bundle = torch.cat([particles, log_lik[:, None]], dim=1)
-    out = bundle.index_select(0, anc)
-    return out[:, :-1], out[:, -1]
+    bundle = torch.cat([particles, log_lik[..., None]], dim=-1)
+    if anc.dim() == 2:
+        n_pop, n = anc.shape
+        base = torch.arange(n_pop, device=anc.device)[:, None] * n
+        out = bundle.reshape(n_pop * n, -1).index_select(
+            0, (anc + base).reshape(-1)).reshape(bundle.shape)
+    else:
+        out = bundle.index_select(0, anc)
+    return out[..., :-1], out[..., -1]
 
 
 def counts_to_ancestors(counts: torch.Tensor) -> torch.Tensor:
     """Offspring counts (N,) -> ancestor index per output slot (N,) int32,
     slot layout as above."""
     counts = counts.to(torch.int32)
-    offsets = (torch.cumsum(counts, 0) - counts).to(torch.int32)
+    offsets = (torch.cumsum(counts, -1) - counts).to(torch.int32)
     return sorted_offsets_to_ancestors(offsets)
 
 
@@ -167,29 +195,35 @@ class MutationResult(NamedTuple):
 
 def _weighted_cov(x: torch.Tensor, cov_weight: torch.Tensor,
                   eps: float = 1e-10) -> torch.Tensor:
-    """Biased empirical covariance (np.cov(bias=True)) times the elementwise
-    cov_weight, plus a relative jitter for Cholesky stability."""
-    n = x.shape[0]
-    mu = torch.mean(x, dim=0)
+    """Biased empirical covariance (np.cov(bias=True)) of x (N, d) times the
+    elementwise cov_weight, plus a relative jitter for Cholesky stability;
+    (D, d, d) for an ensemble's (D, N, d), by one batched matmul."""
+    n = x.shape[-2]
+    mu = torch.mean(x, dim=-2, keepdim=True)
     xc = x - mu
-    cov = (xc.T @ xc) / n
+    cov = (xc.transpose(-1, -2) @ xc) / n
     cov = cov * cov_weight
-    d = cov.shape[0]
-    jitter = eps * (1.0 + torch.trace(cov) / d)
-    return cov + jitter * torch.eye(d, dtype=cov.dtype, device=cov.device)
+    d = cov.shape[-1]
+    trace = torch.sum(torch.diagonal(cov, dim1=-2, dim2=-1), dim=-1)
+    jitter = eps * (1.0 + trace / d)
+    return cov + jitter[..., None, None] * torch.eye(d, dtype=cov.dtype,
+                                                     device=cov.device)
 
 
 def _cholesky_or_nan(cov: torch.Tensor) -> torch.Tensor:
     """Lower Cholesky factor without a host sync; NaN where the matrix is
     not positive definite (as JAX's factor is), so every proposal of a
-    degenerate sweep is rejected instead of raising."""
+    degenerate sweep is rejected instead of raising. In an ensemble's
+    (D, d, d) one degenerate population goes NaN alone."""
     chol, info = torch.linalg.cholesky_ex(cov)
-    return torch.where(info == 0, chol, math.nan)
+    return torch.where((info == 0)[..., None, None], chol, math.nan)
 
 
 class MutationCarry(NamedTuple):
-    """Cross-sweep state of the adaptive mutation loop."""
-    j: int                  # sweeps executed so far (host int: no sync)
+    """Cross-sweep state of the adaptive mutation loop. Shapes for one
+    population; an ensemble adds a leading D to every tensor, and its ``j``
+    is an int32 (D,) tensor (populations stop after different sweeps)."""
+    j: object               # sweeps executed so far (host int: no sync)
     key: object             # the run's Draws
     particles: torch.Tensor  # (N, d)
     log_lik: torch.Tensor   # (N,)
@@ -221,22 +255,27 @@ def make_mutation_parts(kind: str, loglik_fn, prior: Prior, cfg: SMCConfig):
         raise ValueError(f"unknown mutation kind {kind!r}")
 
     def init_fn(key, particles, log_lik):
-        n = particles.shape[0]
         dev = particles.device
+        pops = particles.shape[:-2]            # () or (D,)
+
+        def per_pop(v, dtype):
+            return torch.full(pops, v, dtype=dtype, device=dev)
         return MutationCarry(
-            j=0, key=key, particles=particles, log_lik=log_lik,
+            j=per_pop(0, torch.int32) if pops else 0, key=key,
+            particles=particles, log_lik=log_lik,
             log_prior=prior.log_pdf(particles),
             grad=torch.zeros((), dtype=particles.dtype, device=dev),
-            r_ac=torch.zeros(n, dtype=torch.bool, device=dev),
-            mh_ratio=torch.ones((), dtype=particles.dtype, device=dev),
-            done=torch.zeros((), dtype=torch.bool, device=dev))
+            r_ac=torch.zeros(particles.shape[:-1], dtype=torch.bool,
+                             device=dev),
+            mh_ratio=per_pop(1, particles.dtype),
+            done=per_pop(False, torch.bool))
 
     def admin_fn(c, key, parts, lk1, lp1, g1, accept, gamma):
-        n = parts.shape[0]
+        n = parts.shape[-2]
         r_th = torch.where(gamma >= 1.0, cfg.accept_threshold_final,
                            cfg.accept_threshold)
         r_ac = c.r_ac | accept
-        acc_sum = torch.sum(r_ac)
+        acc_sum = torch.sum(r_ac, dim=-1)
         done = acc_sum > r_th * n
         halve = ~done & (acc_sum < cfg.accept_threshold_min * n)
         ratio = torch.where(halve, c.mh_ratio * cfg.mh_ratio_decay,
@@ -245,30 +284,30 @@ def make_mutation_parts(kind: str, loglik_fn, prior: Prior, cfg: SMCConfig):
                              ratio, done)
 
     def draw_fn(c):
-        n, d = c.particles.shape
-        cov_weight = cfg.cov_weight(d, c.particles.device).to(
+        shape = tuple(c.particles.shape)
+        cov_weight = cfg.cov_weight(shape[-1], c.particles.device).to(
             c.particles.dtype)
         chol = _cholesky_or_nan(_weighted_cov(c.particles, cov_weight))
-        z = c.key.normal((n, d), c.particles.dtype)
-        log_u = torch.log(c.key.uniform((n,), c.particles.dtype))
+        z = c.key.normal(shape, c.particles.dtype)
+        log_u = torch.log(c.key.uniform(shape[:-1], c.particles.dtype))
         return c.key, (chol,), (z, log_u)
 
     def core_fn(parts, lk1, lp1, g1, ratio, aux_g, aux_r, gamma):
         (chol,) = aux_g
         z, log_u = aux_r
-        prop = parts + (z @ chol.T) * ratio
+        prop = parts + (z @ chol.transpose(-1, -2)) * _over(ratio, parts)
         in_sup = prior.in_support(prop)
         # Out-of-support proposals are replaced by the current particle
         # before evaluation (a numerical no-op that keeps shapes fixed).
-        prop_eval = torch.where(in_sup[:, None], prop, parts)
+        prop_eval = torch.where(in_sup[..., None], prop, parts)
         lk2, _ = loglik_fn(prop_eval)
         lp2 = prior.log_pdf(prop_eval)
         # The prior ratio is included: the correct tempered-posterior kernel
         # for any prior, identical to the likelihood-only rule for uniform
         # priors.
-        log_acc = (lk2 - lk1) * gamma + (lp2 - lp1)
+        log_acc = (lk2 - lk1) * _over(gamma, lk1) + (lp2 - lp1)
         accept = in_sup & (log_acc >= log_u) & torch.isfinite(lk2)
-        parts = torch.where(accept[:, None], prop_eval, parts)
+        parts = torch.where(accept[..., None], prop_eval, parts)
         lk1 = torch.where(accept, lk2, lk1)
         lp1 = torch.where(accept, lp2, lp1)
         return parts, lk1, lp1, g1, accept
@@ -280,16 +319,25 @@ def make_mutation_sweeper(kind: str, loglik_fn, prior: Prior,
                           cfg: SMCConfig):
     """``(init_fn, sweep_fn)``: ``sweep_fn(carry, gamma) -> carry`` runs ONE
     sweep (draws, proposal, one likelihood evaluation, accept, controller
-    update), composed from :func:`make_mutation_parts`."""
+    update), composed from :func:`make_mutation_parts`.
+
+    For an ensemble, ``sweep_fn(carry, gamma, active)`` takes a bool (D,)
+    mask: every population is swept (one batched likelihood), and those
+    with ``active[p]`` False keep their old carry."""
     init_fn, draw_fn, core_fn, admin_fn, _ = make_mutation_parts(
         kind, loglik_fn, prior, cfg)
 
-    def sweep_fn(c, gamma):
+    def sweep_fn(c, gamma, active=None):
         key, aux_g, aux_r = draw_fn(c)
         parts, lk1, lp1, g1, accept = core_fn(
             c.particles, c.log_lik, c.log_prior, c.grad, c.mh_ratio,
             aux_g, aux_r, gamma)
-        return admin_fn(c, key, parts, lk1, lp1, g1, accept, gamma)
+        new = admin_fn(c, key, parts, lk1, lp1, g1, accept, gamma)
+        if active is None:
+            return new
+        return MutationCarry(*(
+            n if f in ("key", "grad") else torch.where(_over(active, n), n, o)
+            for f, o, n in zip(MutationCarry._fields, c, new)))
 
     return init_fn, sweep_fn
 

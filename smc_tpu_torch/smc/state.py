@@ -4,6 +4,10 @@ One frozen dataclass with the JAX package's 13 fields, so a whole SMC step is
 an ``SMCState -> SMCState`` function. Scalars are 0-d tensors on the run's
 device, so reading them back is a choice the host loop makes, not a side
 effect of the step. ``key`` holds the run's ``Draws`` object (rng.py).
+
+An ensemble (smc/ensemble.py) is the same dataclass with a leading dataset
+axis D on every tensor field: particles (D, N, d), log_lik (D, N), the
+scalars (D,). Its ``key`` is the ensemble's one ``Draws``.
 """
 from __future__ import annotations
 
@@ -34,11 +38,11 @@ class SMCState:
 
     @property
     def n_particles(self) -> int:
-        return self.particles.shape[0]
+        return self.particles.shape[-2]
 
     @property
     def dim(self) -> int:
-        return self.particles.shape[1]
+        return self.particles.shape[-1]
 
     def replace(self, **kw) -> "SMCState":
         return dataclasses.replace(self, **kw)

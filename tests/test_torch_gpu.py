@@ -1,7 +1,9 @@
 """Card-only tests of the hand-written CUDA kernels: each kernel against its
 plain PyTorch version on the card, the wrappers' input checks, a short run
-of the Michaelis-Menten main path through its three kernels, and a
-methanation likelihood through the block-Thomas kernels.
+of the Michaelis-Menten main path through its three kernels, a methanation
+likelihood through the block-Thomas kernels, the RK4 likelihood kernel, the
+ladder and merge kernels under the ensemble's population axis, and an
+ensemble on the card against the same ensemble on the CPU.
 
 Every test here needs an NVIDIA GPU with nvcc and skips without one (the
 ``cuda`` fixture decides, inside the test). This file imports neither JAX
@@ -226,3 +228,152 @@ def test_methanation_likelihood_launches_the_thomas_kernels(cuda):
     assert dict(_build.launch_counts) == counts
     assert torch.isfinite(ll).all() and (flows != -10000.0).all()
     torch.testing.assert_close(flows, want, rtol=0, atol=0.05)
+
+
+# ---- the RK4 likelihood, the population axis, the ensemble ----------------
+
+@pytest.mark.parametrize("n", [4096, 1001])
+def test_rk4_kernel_matches_plain(cuda, n):
+    """csrc/mm_rk4.cu against its plain version: the same -inf rows
+    (sigma <= 0, NaN inputs) and never a NaN; on stable draws (Km >= 0.3)
+    within 5e-5 of the larger of ll's two terms."""
+    m = MichaelisMentenModel.default(method="pallas", device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(n)
+    theta = torch.rand((n, 3), generator=g, device=cuda) * 10.0
+    theta[::7, 2] *= -1.0
+    theta[1::11, 2] = 0.0
+    theta[2::13, 1] = 0.0
+    theta[3::17, 0] = math.nan
+    _build.reset_launch_counts()
+    got = mm.mm_loglik_pallas(theta, m.obs, m.s0, m.dt, 4)
+    assert _build.launch_counts["mm_rk4"] == 1
+    want = mm.mm_loglik_rk4_plain(theta, m.obs, m.s0, m.dt, 4)
+    assert not bool(torch.isnan(got).any())
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    assert bool(torch.isneginf(got[::7]).all())
+    assert bool(torch.isneginf(got[3::17]).all())
+    ok = torch.isfinite(want) & (theta[:, 1] >= 0.3)
+    sigma = theta[:, 2].clamp_min(1e-12)[ok]
+    t1 = -120.0 * (math.log(2 * math.pi) + 2 * torch.log(sigma))
+    scale = torch.maximum(t1.abs(), (t1 - want[ok]).abs())
+    assert bool(((got[ok] - want[ok]).abs() <= 5e-5 * scale).all())
+    # through the model
+    ll, pred = m.log_likelihood(theta)
+    assert pred is None and torch.equal(ll, got)
+
+
+def test_rk4_wrapper_launches_or_raises(cuda):
+    m = MichaelisMentenModel.default(method="pallas", device=cuda)
+    theta = torch.rand((64, 3), device=cuda)
+    with pytest.raises(TypeError):
+        mm.mm_loglik_pallas(theta.double(), m.obs, m.s0, m.dt)
+    with pytest.raises(ValueError):
+        mm.mm_loglik_pallas(theta, m.obs, m.s0[:3], m.dt)
+    with pytest.raises(ValueError):
+        mm.mm_loglik_pallas(theta, m.obs, m.s0, m.dt, substeps=0)
+
+
+@pytest.mark.parametrize("d,n", [(64, 2048), (5, 70001), (1, 100000)])
+def test_batched_ladder_kernel(cuda, d, n):
+    """(D, N) x (D, K): against the plain form (rtol 1e-5), the same bits
+    on two runs, one launch, and each row the unbatched entry's bits."""
+    g = torch.Generator(device=cuda).manual_seed(d)
+    dl = -torch.rand((d, n), generator=g, device=cuda) * 50.0
+    dl[:, ::13] = -math.inf
+    dg = (0.7 ** torch.arange(81, device=cuda, dtype=torch.float64)).float()
+    dg = (dg[None] * (0.1 + torch.rand((d, 1), generator=g, device=cuda))
+          ).contiguous()
+    _build.reset_launch_counts()
+    s1, s2 = ld.ladder_stats(dl, dg)
+    assert _build.launch_counts["ladder"] == 1 and s1.shape == (d, 81)
+    r1, r2 = ld.ladder_stats_plain(dl, dg)
+    torch.testing.assert_close(s1, r1, rtol=1e-5, atol=0)
+    torch.testing.assert_close(s2, r2, rtol=1e-5, atol=0)
+    t1, t2 = ld.ladder_stats(dl, dg)
+    assert torch.equal(s1, t1) and torch.equal(s2, t2)
+    for p in {0, d - 1}:
+        u1, u2 = ld.ladder_stats(dl[p].contiguous(), dg[p].contiguous())
+        assert torch.equal(u1, s1[p]) and torch.equal(u2, s2[p])
+
+
+@pytest.mark.parametrize("d,n", [(64, 2048), (3, 50003), (1, 4097)])
+def test_batched_merge_kernel(cuda, d, n):
+    """(D, N) offset ladders with zero-count ties, one-takes-all and
+    all-ones rows: bitwise the plain form, and each row the unbatched
+    entry's bits."""
+    c = torch.multinomial(torch.ones(n, device=cuda), d * n,
+                          replacement=True).reshape(d, n)
+    c = torch.stack([row.bincount(minlength=n) for row in c])
+    c[0] = 0
+    c[0, n // 3] = n                       # one takes all
+    if d > 1:
+        c[1] = 1                           # all ones
+    offs = (torch.cumsum(c, 1) - c).to(torch.int32).contiguous()
+    _build.reset_launch_counts()
+    got = rs.sorted_offsets_to_ancestors(offs)
+    assert _build.launch_counts["merge"] == 1
+    assert torch.equal(got, rs.sorted_offsets_to_ancestors_plain(offs))
+    for p in range(min(d, 3)):
+        assert torch.equal(rs.sorted_offsets_to_ancestors(offs[p].contiguous()),
+                           got[p])
+
+
+def test_batched_wrappers_reject_bad_shapes(cuda):
+    with pytest.raises(ValueError):
+        ld.ladder_stats(torch.zeros((2, 8), device=cuda),
+                        torch.ones((3, 4), device=cuda))
+    with pytest.raises(ValueError):
+        ld.ladder_stats(torch.zeros((2, 2, 8), device=cuda),
+                        torch.ones((2, 2, 4), device=cuda))
+    with pytest.raises(ValueError):
+        rs.sorted_offsets_to_ancestors(
+            torch.zeros((2, 2, 8), dtype=torch.int32, device=cuda))
+
+
+class _CpuDrawsOn:
+    """Draws from one CPU generator, moved to ``device``."""
+
+    def __init__(self, seed, device):
+        self.gen, self.device = torch.Generator().manual_seed(seed), device
+
+    def uniform(self, shape, dtype=None):
+        return torch.rand(shape, generator=self.gen).to(self.device)
+
+    def normal(self, shape, dtype=None):
+        return torch.randn(shape, generator=self.gen).to(self.device)
+
+
+def test_ensemble_on_the_card_matches_the_cpu_with_the_same_draws(cuda):
+    """D = 4 populations x N = 2048 through the kernels against the same
+    ensemble on the CPU (plain versions): steps per population within one,
+    posterior means within a quarter of a posterior sd, log-evidence within
+    0.5; one batched launch of each kernel per ensemble sweep or step."""
+    from smc_tpu_torch import Prior, make_ensemble_run
+    from smc_tpu_torch.models.michaelis_menten import (
+        generate_mm_pseudo_data, make_mm_data_loglik)
+    ts, obs0, s0 = generate_mm_pseudo_data()
+    d, cfg = 4, SMCConfig(n_particles=2048)
+    gen = torch.Generator().manual_seed(5)
+    obs = torch.tensor(obs0)[None] + 0.02 * torch.randn(
+        (d,) + obs0.shape, generator=gen)
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        prior = Prior.uniform([0.0] * 3, [10.0] * 3, device=dev)
+        ll = make_mm_data_loglik(torch.tensor(ts, device=dev),
+                                 torch.tensor(s0, device=dev),
+                                 method="pallas_exact")
+        _build.reset_launch_counts()
+        out[dev.type] = make_ensemble_run(prior, ll, d, cfg)(
+            _CpuDrawsOn(7, dev), obs.to(dev))
+        if dev.type == "cuda":
+            counts = dict(_build.launch_counts)
+    g, c = out["cuda"], out["cpu"]
+    assert bool((g.gamma == 1.0).all()) and bool((c.gamma == 1.0).all())
+    # a flipped accept lets a population's two runs drift apart like two
+    # seeds: a step more or less is allowed
+    assert int((g.step.cpu() - c.step).abs().max()) <= 1
+    assert counts["ladder"] == counts["merge"] == int(g.step.max())
+    assert counts["mm_exact"] > counts["ladder"] and counts["mm_rk4"] == 0
+    pg, pc = g.particles.cpu(), c.particles
+    assert bool(((pg.mean(1) - pc.mean(1)).abs() < 0.25 * pc.std(1)).all())
+    assert bool(((g.log_evidence.cpu() - c.log_evidence).abs() < 0.5).all())

@@ -1,0 +1,168 @@
+"""The port's fixed-step RK4 Michaelis-Menten likelihood (method="pallas",
+CUDA kernel csrc/mm_rk4.cu) against the JAX package on the CPU: the kernel's
+plain version and the model's method against ``mm_loglik_pallas`` run in
+interpret mode, on shared arrays."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from smc_tpu.models.michaelis_menten import generate_mm_pseudo_data as jgen
+from smc_tpu.ops.mm_pallas import mm_loglik_pallas as j_mm_loglik_pallas
+from smc_tpu_torch import SMCConfig, convert, make_full_run_on_device
+from smc_tpu_torch.ops.mm_cuda import mm_loglik_pallas, mm_loglik_rk4_plain
+from tests.torch_parity import assert_ll_close
+
+_PRIOR = dict(kind=[0, 0, 0], low=[0.0] * 3, high=[10.0] * 3,
+              loc=[5.0] * 3, scale=[10.0] * 3)
+# The two sides do the same fp32 operations in the same order; XLA may
+# contract a multiply-add where PyTorch does not, and 156 RK4 steps carry
+# such last-bit differences along. 2e-5 of the larger of ll's two terms
+# holds them on stable draws (measured: 1.1e-6 at N = 1000).
+RTOL = 2e-5
+
+
+@pytest.fixture(scope="module")
+def data():
+    ts, obs, s0 = jgen()
+    return ts, obs, s0, float(ts[1] - ts[0])
+
+
+def _stable_theta(n, seed):
+    """Draws where fixed-step RK4 in fp32 is stable (Km not tiny; the
+    regime tests/test_pallas.py uses), with the truth last and, from
+    n = 64 on, the edge rows sigma < 0 and sigma == 0."""
+    rng = np.random.default_rng(seed)
+    th = np.column_stack([rng.uniform(0.3, 5.0, n), rng.uniform(0.3, 5.0, n),
+                          rng.uniform(0.05, 5.0, n)]).astype(np.float32)
+    if n >= 64:
+        th[::37, 2] *= -1.0
+        th[1::41, 2] = 0.0
+    th[-1] = [1.2, 0.5, 0.02]
+    return th
+
+
+def _jax_ll(theta, obs, s0, dt, **kw):
+    return np.asarray(j_mm_loglik_pallas(
+        jnp.asarray(theta), jnp.asarray(obs), jnp.asarray(s0), dt,
+        interpret=True, **kw))
+
+
+@pytest.mark.parametrize("n,block", [(256, 256), (300, 256), (3, 256),
+                                     (1000, 8192)])
+def test_plain_rk4_matches_pallas_interpret(data, n, block):
+    """The plain version of csrc/mm_rk4.cu against the Pallas kernel in
+    interpret mode, at sizes that are and are not multiples of the TPU
+    kernel's block (its pad-and-slice path; the port masks instead)."""
+    ts, obs, s0, dt = data
+    theta = _stable_theta(n, n)
+    want = _jax_ll(theta, obs, s0, dt, block=block)
+    got = mm_loglik_rk4_plain(torch.from_numpy(theta), torch.from_numpy(obs),
+                              torch.from_numpy(s0), dt).numpy()
+    assert got.shape == (n,) and got.dtype == np.float32
+    assert np.isneginf(got[theta[:, 2] <= 0]).all()
+    assert_ll_close(got, want, theta, 6, 40, RTOL)
+
+
+@pytest.mark.parametrize("substeps", [1, 2])
+def test_plain_rk4_substeps(data, substeps):
+    ts, obs, s0, dt = data
+    theta = _stable_theta(128, 5)
+    want = _jax_ll(theta, obs, s0, dt, substeps=substeps, block=128)
+    got = mm_loglik_rk4_plain(torch.from_numpy(theta), torch.from_numpy(obs),
+                              torch.from_numpy(s0), dt, substeps).numpy()
+    assert_ll_close(got, want, theta, 6, 40, RTOL)
+
+
+def test_rk4_edge_rows_are_minus_inf_never_nan(data):
+    """sigma <= 0 gives -inf. Km is not clamped in this kernel: Km = 0 with
+    S reaching 0 makes 0/0, and Km = -S0 a division by zero at t = 0; a NaN
+    log-likelihood comes out as -inf on both sides, never as NaN."""
+    ts, obs, s0, dt = data
+    theta = np.array([[1.2, 0.5, 0.02],
+                      [1.2, 0.5, -1.0],
+                      [1.2, 0.5, 0.0],
+                      [5.0, 0.0, 0.5],        # Km = 0: S hits 0, then 0/0
+                      [1.0, -2.0, 0.5],       # Km + S0 = 0 for S0 = 2
+                      [np.nan, 0.5, 0.5],
+                      [1.2, np.nan, 0.5],
+                      [1.2, 0.5, np.nan]], np.float32)
+    want = _jax_ll(theta, obs, s0, dt, block=8)
+    got = mm_loglik_pallas(torch.from_numpy(theta), torch.from_numpy(obs),
+                           torch.from_numpy(s0), dt).numpy()
+    assert not np.isnan(got).any() and not np.isnan(want).any()
+    assert np.isfinite(got[0])
+    assert np.isneginf(got[[1, 2, 5, 6, 7]]).all()
+    np.testing.assert_array_equal(np.isneginf(got), np.isneginf(want))
+    fin = np.isfinite(want)
+    np.testing.assert_allclose(got[fin], want[fin], rtol=1e-4)
+
+
+def test_model_method_pallas_matches_jax_model(data):
+    """The model's method="pallas" (the plain version here, the CUDA kernel
+    on the card) against the JAX model's, which runs its Pallas kernel in
+    interpret mode on the CPU; and against the port's own "rk4" method,
+    which is the same march written with ops/ode.py."""
+    from smc_tpu.models.michaelis_menten import MichaelisMentenModel as JaxMM
+    from smc_tpu.priors import Prior as JaxPrior
+    ts, obs, s0, dt = data
+    theta = _stable_theta(512, 9)
+    jm = JaxMM(obs=jnp.asarray(obs), s0=jnp.asarray(s0), ts=jnp.asarray(ts),
+               prior=JaxPrior.uniform([0.0] * 3, [10.0] * 3), method="pallas")
+    want, pred = jm.log_likelihood(jnp.asarray(theta))
+    assert pred is None
+    tm = convert.mm_model_from_numpy(obs, s0, ts, _PRIOR, method="pallas",
+                                     device="cpu")
+    got, tpred = tm.log_likelihood(torch.from_numpy(theta))
+    assert tpred is None
+    assert_ll_close(got.numpy(), np.asarray(want), theta, 6, 40, RTOL)
+    rk4 = convert.mm_model_from_numpy(obs, s0, ts, _PRIOR, method="rk4",
+                                      device="cpu")
+    ref = rk4.log_likelihood(torch.from_numpy(theta))[0].numpy()
+    assert_ll_close(got.numpy(), ref, theta, 6, 40, 2e-4)
+
+
+def test_model_method_pallas_fixed_sigma_and_substeps(data):
+    ts, obs, s0, dt = data
+    theta = _stable_theta(64, 2)
+    tm = convert.mm_model_from_numpy(obs, s0, ts, _PRIOR, method="pallas",
+                                     substeps=2, est_sigma=False,
+                                     sigma_fixed=0.05, device="cpu")
+    got = tm.log_likelihood(torch.from_numpy(theta[:, :2].copy()))[0].numpy()
+    th3 = theta.copy()
+    th3[:, 2] = 0.05
+    want = _jax_ll(th3, obs, s0, dt, substeps=2, block=64)
+    assert_ll_close(got, want, th3, 6, 40, RTOL)
+
+
+def test_dopri5_still_raises(data):
+    ts, obs, s0, _ = data
+    with pytest.raises(NotImplementedError):
+        convert.mm_model_from_numpy(obs, s0, ts, _PRIOR, method="dopri5",
+                                    device="cpu")
+
+
+def test_wrapper_rejects_other_devices(data):
+    """A tensor that is neither on the CPU nor on a CUDA device raises: the
+    wrapper never falls back to the plain version for it."""
+    ts, obs, s0, dt = data
+    theta = torch.from_numpy(_stable_theta(8, 0)).to("meta")
+    with pytest.raises(ValueError):
+        mm_loglik_pallas(theta, torch.from_numpy(obs), torch.from_numpy(s0),
+                         dt)
+
+
+def test_run_with_method_pallas_reaches_gamma_one(data):
+    """A whole run through method="pallas" at N = 512: gamma = 1 and a
+    posterior around the truth (Vmax = 1.2, Km = 0.5, sigma = 0.02)."""
+    ts, obs, s0, _ = data
+    tm = convert.mm_model_from_numpy(obs, s0, ts, _PRIOR, method="pallas",
+                                     device="cpu")
+    s = make_full_run_on_device(tm, SMCConfig(n_particles=512))(1)
+    assert float(s.gamma) == 1.0
+    p = s.particles.numpy()
+    mean, std = p.mean(0), p.std(0)
+    assert abs(mean[0] - 1.2) < 4 * std[0] + 0.05
+    assert abs(mean[1] - 0.5) < 4 * std[1] + 0.05
+    assert abs(mean[2] - 0.02) < 4 * std[2] + 0.01
+    assert bool(torch.isfinite(s.log_lik).all())

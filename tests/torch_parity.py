@@ -34,6 +34,76 @@ class ReplayDraws:
         return self._next("normal", shape)
 
 
+class RecordingDraws:
+    """A ``Draws`` that passes every request on to ``inner`` and keeps what
+    came back, in order, as ("uniform" | "normal", array) entries."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.entries = []
+
+    def uniform(self, shape, dtype=torch.float32):
+        out = self.inner.uniform(shape, dtype)
+        self.entries.append(("uniform", out.cpu().numpy().copy()))
+        return out
+
+    def normal(self, shape, dtype=torch.float32):
+        out = self.inner.normal(shape, dtype)
+        self.entries.append(("normal", out.cpu().numpy().copy()))
+        return out
+
+
+class PopulationReplay:
+    """One population's share of an ensemble's recorded draws, served to a
+    single run of that population alone.
+
+    The ensemble draws (rng.py): the prior pair with a leading D; then per
+    ensemble step ``uniform((D,))`` followed by one ``normal((D, n, d))``,
+    ``uniform((D, n))`` pair per ensemble sweep. The replay is keyed by
+    step and sweep: the single run's ``uniform(())`` opens the next recorded
+    step and returns row ``pop`` of its v0; each of its sweeps takes row
+    ``pop`` of that step's next pair. A population that stops sweeping
+    before the ensemble does leaves the step's later pairs unread, as it
+    did inside the ensemble."""
+
+    def __init__(self, entries, pop):
+        self.pop = pop
+        self.prior = list(entries[:2])
+        self.steps = []                      # [v0 (D,), [pair entries...]]
+        for kind, arr in entries[2:]:
+            if kind == "uniform" and arr.ndim == 1:
+                self.steps.append([arr, []])
+            else:
+                self.steps[-1][1].append((kind, arr))
+        self.step = -1
+        self.pos = 0
+
+    def _row(self, kind, want_kind, arr, shape):
+        row = np.asarray(arr[self.pop])
+        if kind != want_kind or tuple(row.shape) != tuple(shape):
+            raise AssertionError(f"replay expected {kind}{row.shape}, got "
+                                 f"{want_kind}{tuple(shape)}")
+        return torch.from_numpy(row.astype(np.float32))
+
+    def _next(self, want_kind, shape):
+        if self.prior:
+            kind, arr = self.prior.pop(0)
+            return self._row(kind, want_kind, arr, shape)
+        if want_kind == "uniform" and tuple(shape) == ():
+            self.step += 1
+            self.pos = 0
+            return torch.tensor(float(self.steps[self.step][0][self.pop]))
+        kind, arr = self.steps[self.step][1][self.pos]
+        self.pos += 1
+        return self._row(kind, want_kind, arr, shape)
+
+    def uniform(self, shape, dtype=torch.float32):
+        return self._next("uniform", shape)
+
+    def normal(self, shape, dtype=torch.float32):
+        return self._next("normal", shape)
+
+
 def prior_draws(k_init, n, d):
     """Prior.sample's draws from the key it is given (u, then z)."""
     ku, kn = jax.random.split(k_init)
