@@ -7,24 +7,31 @@
 // and _lu_cols), the Pallas TPU kernel behind block_thomas_factor_pl. The
 // TPU kernel is one program over the whole batch that streams grid rows
 // through double-buffered VMEM windows with manual DMAs and semaphores, and
-// pads the blocks 7 -> 8 columns so the row DMAs are sublane-aligned. None
-// of that is carried over. Lanes are independent systems, so here one
-// thread owns one lane and walks the NX recurrence in a loop; the 7x7
-// algebra is unrolled over compile-time indices so the blocks live in
-// registers. Element [i, r, c, lane] of neighbouring threads is contiguous,
-// so every load and store is coalesced without shared memory.
+// pads the blocks 7 -> 8 columns so the row DMAs are sublane-aligned. Here
+// lanes are independent systems: one thread owns one lane and walks the NX
+// recurrence in a loop, with the 7x7 algebra unrolled over compile-time
+// indices so that LU_{i-1} and the new block live in registers.
 //
 // What bounds it on the H100: bytes. Five arrays of NX*49 floats per lane
-// (about 50 KB per lane at NX = 51) against about 750 FMAs per grid row.
+// (about 50 KB per lane at NX = 51) against about 800 fp32 instructions
+// per grid row. The march's B = 15,360 lanes are 480 warps, under four per
+// SM, so the device memory is kept busy only if each warp has a row's bytes
+// in flight while it computes; loads issued ahead into registers cannot do
+// that (the blocks already hold about 100 of them).
 //
-// What the design does about it: every input is read once and every output
-// written once, nothing is staged in shared memory, and the loads of row i
-// do not depend on the recurrence, so they can be issued ahead of the
-// arithmetic. Registers are the scarce resource (LU_prev 49, the new block
-// 49, C_{i-1} 49): the row is staged as _factor_row stages it. Each row r
-// of m_i is solved on its own from row r of A_i (w U = A_i, then m L = w),
-// stored, and spent at once on row r of B_i - m_i C_{i-1}, so A_i and m_i
-// are never held whole.
+// What the design does about it: a block owns a tile of kLanes lanes, one
+// thread per lane, and stages the rows through a ring of kStages stages in
+// shared memory (ring.cuh). A stage holds B_i, A_i and C_{i-1} of the
+// thread's lane, copied with cp.async kStages - 1 rows ahead of the
+// arithmetic, which reads them from the thread's own bank in the order
+// _factor_row spends them: each row r of m_i is solved on its own from row
+// r of A_i (w U = A_i, then m L = w), stored, and spent at once on row r of
+// B_i - m_i C_{i-1}, so A_i and m_i are never held whole. LU_i and m_i go
+// out as coalesced 4-byte stores, lane after lane. The copies pass through
+// L1, so the SM keeps kCarveout percent of its L1 and shared memory as
+// shared memory and the rest as L1 (196 KB and 60 KB): at the default
+// split, 228 KB of shared memory, 28 KB of L1 held the bytes in flight
+// below what the device memory needs.
 //
 // Operation order follows _factor_row and _lu_cols (reciprocal, then
 // multiply, for the pivots); nvcc contracts a*b + c into FMAs, so results
@@ -33,10 +40,19 @@
 // the caller's failure sentinel rejects that particle.
 #include <cuda_runtime.h>
 
+#include "ring.cuh"
+
 namespace {
 
 constexpr int NF = 7;
-constexpr int kThreads = 64;   // B = 15,360 lanes is 240 blocks on 132 SMs
+constexpr int NB = NF * NF;
+constexpr int kLanes = 32;     // lanes (threads) per block
+constexpr int kStages = 2;     // rows in the ring
+constexpr int kCarveout = 85;  // percent of L1 + shared kept as shared
+constexpr int kSlot = 3 * NB;  // floats per lane and stage: B_i, A_i, C_{i-1}
+constexpr size_t kSmem = sizeof(float) * kStages * kSlot * kLanes;
+
+bool smem_set[2][64];          // per column stride and device
 
 // In-place no-pivot Doolittle LU: unit-lower L below the diagonal, U on and
 // above it.
@@ -54,42 +70,86 @@ __device__ __forceinline__ void lu_inplace(float (&M)[NF][NF]) {
   }
 }
 
+// Copy grid row i of this lane into stage `st`: B_i (entries 0-48) and, for
+// i >= 1, A_i (49-97) and C_{i-1} (98-146).
 template <int CS>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ void issue(float* st, int i, int nx, size_t snb,
+                                      const float* A, const float* B,
+                                      const float* C) {
+  if (i < nx) {
+    const size_t row = static_cast<size_t>(NF) * CS * snb;
+#pragma unroll
+    for (int r = 0; r < NF; ++r)
+#pragma unroll
+      for (int c = 0; c < NF; ++c)
+        ring::copy4(st + (r * NF + c) * kLanes, B + i * row + (r * CS + c) * snb);
+    if (i > 0) {
+#pragma unroll
+      for (int r = 0; r < NF; ++r)
+#pragma unroll
+        for (int c = 0; c < NF; ++c) {
+          const size_t e = (r * CS + c) * snb;
+          ring::copy4(st + (NB + r * NF + c) * kLanes, A + i * row + e);
+          ring::copy4(st + (2 * NB + r * NF + c) * kLanes,
+                      C + (i - 1) * row + e);
+        }
+    }
+  }
+  ring::commit();
+}
+
+template <int CS>
+__global__ void __launch_bounds__(kLanes)
 thomas_factor_kernel(const float* __restrict__ A, const float* __restrict__ B,
                      const float* __restrict__ C, float* __restrict__ LU,
                      float* __restrict__ Ms, int nx, int nb) {
-  const int lane = blockIdx.x * kThreads + threadIdx.x;
+  extern __shared__ float smem[];
+  const int lane = blockIdx.x * kLanes + threadIdx.x;
   if (lane >= nb) return;
   const size_t snb = static_cast<size_t>(nb);
   const size_t row = static_cast<size_t>(NF) * CS * snb;  // one grid row
-  // Offset of block entry (r, c) of this lane within a grid row.
-  auto at = [&](int r, int c) {
-    return static_cast<size_t>(r * CS + c) * snb + lane;
-  };
+  // Offset of block entry (r, c) of this lane within a grid row, once the
+  // global arrays are offset to the lane.
+  auto at = [&](int r, int c) { return static_cast<size_t>(r * CS + c) * snb; };
+  A += lane, B += lane, C += lane, LU += lane, Ms += lane;
+  float* base = smem + threadIdx.x;   // entry e of stage s: [(s*kSlot+e)*kLanes]
+
+  int wr = 0;
+  for (int i = 0; i < kStages - 1; ++i, ++wr)
+    issue<CS>(base + wr * kSlot * kLanes, i, nx, snb, A, B, C);
 
   float lu[NF][NF];
-#pragma unroll
-  for (int r = 0; r < NF; ++r)
-#pragma unroll
-    for (int c = 0; c < NF; ++c) lu[r][c] = B[at(r, c)];
-  lu_inplace(lu);
-#pragma unroll
-  for (int r = 0; r < NF; ++r) {
-#pragma unroll
-    for (int c = 0; c < NF; ++c) LU[at(r, c)] = lu[r][c];
-#pragma unroll
-    for (int c = NF; c < CS; ++c) LU[at(r, c)] = 0.0f;   // the pad column
-#pragma unroll
-    for (int c = 0; c < CS; ++c) Ms[at(r, c)] = 0.0f;
-  }
-
-  for (int i = 1; i < nx; ++i) {
-    const float* Ai = A + i * row;
-    const float* Bi = B + i * row;
-    const float* Cp = C + (i - 1) * row;
+  int rd = 0;
+#pragma unroll 1
+  for (int i = 0; i < nx; ++i) {
+    issue<CS>(base + wr * kSlot * kLanes, i + kStages - 1, nx, snb, A, B, C);
+    wr = wr + 1 == kStages ? 0 : wr + 1;
+    ring::wait<kStages - 1>();                 // row i has landed
+    const float* s = base + rd * kSlot * kLanes;
+    rd = rd + 1 == kStages ? 0 : rd + 1;
+    auto sB = [&](int r, int c) { return s[(r * NF + c) * kLanes]; };
+    auto sA = [&](int r, int c) { return s[(NB + r * NF + c) * kLanes]; };
+    auto sC = [&](int r, int c) { return s[(2 * NB + r * NF + c) * kLanes]; };
     float* LUi = LU + i * row;
     float* Mi = Ms + i * row;
+
+    if (i == 0) {
+#pragma unroll
+      for (int r = 0; r < NF; ++r)
+#pragma unroll
+        for (int c = 0; c < NF; ++c) lu[r][c] = sB(r, c);
+      lu_inplace(lu);
+#pragma unroll
+      for (int r = 0; r < NF; ++r) {
+#pragma unroll
+        for (int c = 0; c < NF; ++c) LUi[at(r, c)] = lu[r][c];
+#pragma unroll
+        for (int c = NF; c < CS; ++c) LUi[at(r, c)] = 0.0f;   // the pad column
+#pragma unroll
+        for (int c = 0; c < CS; ++c) Mi[at(r, c)] = 0.0f;
+      }
+      continue;
+    }
 
     float inv[NF];
 #pragma unroll
@@ -101,7 +161,7 @@ thomas_factor_kernel(const float* __restrict__ A, const float* __restrict__ B,
       float w[NF], m[NF];
 #pragma unroll
       for (int c = 0; c < NF; ++c) {          // w U = A, columns ascending
-        float acc = Ai[at(r, c)];
+        float acc = sA(r, c);
 #pragma unroll
         for (int k = 0; k < c; ++k) acc = acc - w[k] * lu[k][c];
         w[c] = acc * inv[c];
@@ -119,9 +179,9 @@ thomas_factor_kernel(const float* __restrict__ A, const float* __restrict__ B,
       for (int c = NF; c < CS; ++c) Mi[at(r, c)] = 0.0f;
 #pragma unroll
       for (int j = 0; j < NF; ++j) {          // row r of B - m C_prev
-        float acc = Bi[at(r, j)];
+        float acc = sB(r, j);
 #pragma unroll
-        for (int k = 0; k < NF; ++k) acc = acc - m[k] * Cp[at(k, j)];
+        for (int k = 0; k < NF; ++k) acc = acc - m[k] * sC(k, j);
         bp[r][j] = acc;
       }
     }
@@ -137,6 +197,19 @@ thomas_factor_kernel(const float* __restrict__ A, const float* __restrict__ B,
       for (int c = NF; c < CS; ++c) LUi[at(r, c)] = 0.0f;
     }
   }
+  ring::wait<0>();
+}
+
+template <int CS>
+int launch(const float* A, const float* B, const float* C, float* LU,
+           float* Ms, int nx, int nb, cudaStream_t s) {
+  cudaError_t err = ring::allow_smem(thomas_factor_kernel<CS>,
+                                     kCarveout, smem_set[CS - NF]);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = (nb + kLanes - 1) / kLanes;
+  thomas_factor_kernel<CS><<<blocks, kLanes, kSmem, s>>>(A, B, C, LU, Ms, nx,
+                                                         nb);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -149,12 +222,21 @@ extern "C" int thomas_factor_launch(const float* A, const float* B,
   if (nx < 1 || nb < 1 || (cs != 7 && cs != 8))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int blocks = (nb + kThreads - 1) / kThreads;
-  if (cs == 7)
-    thomas_factor_kernel<7><<<blocks, kThreads, 0, s>>>(A, B, C, LU, Ms, nx,
-                                                        nb);
-  else
-    thomas_factor_kernel<8><<<blocks, kThreads, 0, s>>>(A, B, C, LU, Ms, nx,
-                                                        nb);
-  return static_cast<int>(cudaGetLastError());
+  return cs == 7 ? launch<7>(A, B, C, LU, Ms, nx, nb, s)
+                 : launch<8>(A, B, C, LU, Ms, nx, nb, s);
+}
+
+// Registers, shared bytes per block, resident blocks per SM and spilled
+// bytes of the kernel behind the column stride `cs` (7 or 8) into out[0..3];
+// lanes per block into out[4]. `nx` is taken for the apply's signature: the
+// factor's shared memory does not depend on it.
+extern "C" int thomas_factor_info(int cs, int nx, int* out) {
+  if ((cs != 7 && cs != 8) || nx < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  out[4] = kLanes;
+  return static_cast<int>(
+      cs == 7 ? ring::info(thomas_factor_kernel<7>, kLanes, kSmem, kCarveout,
+                           smem_set[0], out)
+              : ring::info(thomas_factor_kernel<8>, kLanes, kSmem, kCarveout,
+                           smem_set[1], out));
 }

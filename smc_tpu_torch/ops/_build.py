@@ -29,6 +29,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("mm_exact.cu", "mm_rk4.cu", "ladder.cu", "merge.cu",
            "thomas_factor.cu", "thomas_apply.cu")
+HEADERS = ("ring.cuh",)        # included by sources; part of the hash
 # IEEE expf/logf/division throughout: no --use_fast_math.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -50,6 +51,10 @@ _SIGNATURES = {
     # LU, Ms, C, rhs, x, nx, nb, stream (factor column stride 8, then 7)
     "thomas_apply_launch": (_P, _P, _P, _P, _P, _I, _I, _P),
     "thomas_apply_tiled_launch": (_P, _P, _P, _P, _P, _I, _I, _P),
+    # cs, nx, int[5] out: registers, shared bytes per block, blocks per
+    # SM, spilled bytes, lanes per block (no launch)
+    "thomas_factor_info": (_I, _I, _P),
+    "thomas_apply_info": (_I, _I, _P),
 }
 
 # Launches of each kernel since the last reset (plain ints; each wrapper
@@ -78,7 +83,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]

@@ -9,7 +9,8 @@ rows of 7x7 blocks is solved for each of B lanes (the lane axis is last):
   x_i = LU_i^{-1} (rp_i - C_i x_{i+1}).
 
 The kernels are ``csrc/thomas_factor.cu`` and ``csrc/thomas_apply.cu``: one
-thread per lane, the NX recurrence a loop inside the thread, at any B (the
+thread per lane, the NX recurrence a loop inside the thread, the rows staged
+through a ring in shared memory by asynchronous copies, at any B (the
 ragged tail is masked). The plain versions are the Python loops of
 ``ops/dae_fast.py``. A CPU tensor takes the plain version; a CUDA tensor
 launches the kernel or raises.
@@ -25,6 +26,7 @@ takes 7-column ones.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Tuple
 
 import torch
@@ -64,6 +66,20 @@ def block_thomas_factor_plain(A, B, C) -> Tuple[torch.Tensor, torch.Tensor]:
         LUs, ms = F.pad(LUs, (0, 0, 0, ncol - NF)), \
             F.pad(ms, (0, 0, 0, ncol - NF))
     return LUs, ms
+
+
+def kernel_info(name: str, nx: int) -> dict:
+    """What the occupancy calculator says of a kernel launched at ``nx``
+    grid rows on the current card: ``name`` is ``thomas_factor`` (7-column
+    blocks), ``thomas_apply`` or ``thomas_apply_tiled``. Builds the library
+    if needed."""
+    entry, cs = {"thomas_factor": ("thomas_factor_info", NF),
+                 "thomas_apply": ("thomas_apply_info", _SUB),
+                 "thomas_apply_tiled": ("thomas_apply_info", NF)}[name]
+    out = (ctypes.c_int * 5)()
+    _build.check(getattr(_build.load(), entry)(cs, nx, out), entry)
+    return dict(zip(("registers", "smem_bytes", "blocks_per_sm",
+                     "spill_bytes", "lanes_per_block"), out))
 
 
 def _check_blocks(name, M, nx, ncol, b, dev):

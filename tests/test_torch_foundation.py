@@ -19,6 +19,7 @@ from smc_tpu.smc import diagnostics as jdiag
 from smc_tpu_torch import SMCConfig, TorchDraws, convert
 from smc_tpu_torch.priors import Prior
 from smc_tpu_torch.smc import diagnostics as tdiag
+import tests.torch_parity  # noqa: F401  (one PyTorch thread)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 

@@ -1,9 +1,10 @@
 """Card-only tests of the hand-written CUDA kernels: each kernel against its
 plain PyTorch version on the card, the wrappers' input checks, a short run
-of the Michaelis-Menten main path through its three kernels, a methanation
-likelihood through the block-Thomas kernels, the RK4 likelihood kernel, the
-ladder and merge kernels under the ensemble's population axis, and an
-ensemble on the card against the same ensemble on the CPU.
+of the Michaelis-Menten main path through its three kernels, the
+block-Thomas kernels at lane counts around their 32-lane tiles and at the
+march's width, a methanation likelihood through them, the RK4 likelihood
+kernel, the ladder and merge kernels under the ensemble's population axis,
+and an ensemble on the card against the same ensemble on the CPU.
 
 Every test here needs an NVIDIA GPU with nvcc and skips without one (the
 ``cuda`` fixture decides, inside the test). This file imports neither JAX
@@ -163,6 +164,56 @@ def test_thomas_apply_kernels_match_plain(cuda, nx, b):
     x8 = tc.block_thomas_apply_pl(*tc.pad_factors(LU, ms, C), r)
     assert _lane_rel(x7, want) < 1e-4 and _lane_rel(x8, want) < 1e-4
     assert torch.equal(tc.block_thomas_apply_pl(LU, ms, C, r), x8)
+
+
+@pytest.mark.parametrize("nx", [1, 2, 51, 80])
+@pytest.mark.parametrize("b", [1, 31, 32, 33, 1037, 1110, 15360])
+def test_thomas_ring_kernels_at_every_lane_count(cuda, nx, b):
+    """The factor and both applies against their plain versions at 1e-4 of
+    each lane's largest value, at lane counts below, at and around one
+    32-lane tile, ragged and at the march's width; at row counts that leave
+    the ring fewer rows than stages, and at one (80) where the apply keeps
+    rp in x rather than in shared memory."""
+    A, B, C, r = _blocks(cuda, nx, b, 7 * nx + b)
+    LU, ms, _ = tc.block_thomas_factor_pl(A, B, C)
+    pLU, pms = tc.block_thomas_factor_plain(A, B, C)
+    assert _lane_rel(LU, pLU) < 1e-4
+    assert nx == 1 or _lane_rel(ms[1:], pms[1:]) < 1e-4
+    assert not ms[0].any()
+    want = tc.block_thomas_apply_plain(LU, ms, C, r)
+    assert _lane_rel(tc.block_thomas_apply_tiled(LU, ms, C, r), want) < 1e-4
+    x8 = tc.block_thomas_apply_pl(*tc.pad_factors(LU, ms, C), r)
+    assert _lane_rel(x8, want) < 1e-4
+
+
+def test_thomas_column_strides_give_equal_bits(cuda):
+    """The 7- and 8-column entry points run one body: equal inputs give
+    equal bits, for the factor and for the apply."""
+    A, B, C, r = _blocks(cuda, 51, 1037, 11)
+    LU, ms, _ = tc.block_thomas_factor_pl(A, B, C)
+    LU8, ms8, C8 = tc.block_thomas_factor_pl(*tc.pad_blocks(A, B, C))
+    assert torch.equal(LU8[:, :, :7], LU) and torch.equal(ms8[:, :, :7], ms)
+    assert torch.equal(tc.block_thomas_apply_pl(LU8, ms8, C8, r),
+                       tc.block_thomas_apply_tiled(LU, ms, C, r))
+
+
+def test_thomas_march_width_is_not_refused(cuda):
+    """At the march's shape (51, 15,360) the ring fits: every kernel has a
+    resident block per SM within the card's shared memory, and launches."""
+    for name in ("thomas_factor", "thomas_apply", "thomas_apply_tiled"):
+        info = tc.kernel_info(name, 51)
+        assert info["blocks_per_sm"] >= 1 and info["spill_bytes"] == 0
+        assert 0 < info["smem_bytes"] <= 227 * 1024
+    A, B, C, r = _blocks(cuda, 51, 15360, 2)
+    _build.reset_launch_counts()
+    LU, ms, _ = tc.block_thomas_factor_pl(A, B, C)
+    x = tc.block_thomas_apply_tiled(LU, ms, C, r)
+    tc.block_thomas_apply_pl(*tc.pad_factors(LU, ms, C), r)
+    torch.cuda.synchronize()
+    assert torch.isfinite(x).all()
+    assert (_build.launch_counts["thomas_factor"],
+            _build.launch_counts["thomas_apply_tiled"],
+            _build.launch_counts["thomas_apply"]) == (1, 1, 1)
 
 
 def test_thomas_singular_pivot_stays_in_its_lane(cuda):

@@ -11,6 +11,7 @@ from smc_tpu.ops.ladder_pallas import ladder_stats as j_ladder
 from smc_tpu.smc.kernels import find_gamma as j_find_gamma
 from smc_tpu_torch import SMCConfig, find_gamma
 from smc_tpu_torch.ops.ladder_cuda import ladder_stats, ladder_stats_plain
+import tests.torch_parity  # noqa: F401  (one PyTorch thread)
 
 
 @pytest.mark.parametrize("n", [9000, 333])

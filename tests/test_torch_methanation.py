@@ -4,8 +4,9 @@ schedule, residual rows, every Jacobian slot, and the lagged-Jacobian BDF2
 march through to flows and log-likelihood. Both packages get the same
 condition arrays and observations (``torch_parity.methanation_pair``).
 
-The JAX side compiles one march here (the lagged schedule); the pivoted
-full-Newton march is in ``test_torch_methanation_pivot.py``.
+The JAX side compiles one march here (the lagged schedule), once, for
+both parameter sets (``jax_runs``); the pivoted full-Newton march is in
+``test_torch_methanation_pivot.py``.
 """
 import dataclasses
 
@@ -18,7 +19,7 @@ from smc_tpu.models import methanation as JM
 from smc_tpu_torch.models import methanation as TM
 from smc_tpu_torch.ops.dae import geometric_schedule
 from smc_tpu_torch.smc.diagnostics import failed_solve_count
-from tests.torch_parity import (jax_march_final_state, methanation_pair,
+from tests.torch_parity import (jax_loglik_and_final_state, methanation_pair,
                                 torch_march_final_state)
 
 NX, NC = 11, 2
@@ -37,6 +38,14 @@ FLOW_TOL = dict(rtol=1e-3, atol=5e-3)
 @pytest.fixture(scope="module")
 def pair():
     return methanation_pair(NC, NX, **LAGGED)
+
+
+@pytest.fixture(scope="module")
+def jax_runs(pair):
+    """The JAX model's (ll, flows, final state) at THETA and at CRAZY, from
+    one compiled program (both are (2, 5))."""
+    return dict(zip(("theta", "crazy"),
+                    jax_loglik_and_final_state(pair[0], (THETA, CRAZY))))
 
 
 def test_condition_table_bit_identical():
@@ -154,11 +163,11 @@ def test_every_jacobian_slot_matches_jax(pad_cols):
         assert got[slot].movedim(2, 0).is_contiguous()
 
 
-def test_lagged_march_flows_and_loglik_match_jax(pair):
+def test_lagged_march_flows_and_loglik_match_jax(pair, jax_runs):
     """The default kind of schedule (lagged Jacobian, predictor, cj
     compensation, dense tail) end to end."""
-    jm, tm = pair
-    jll, jfl = jm.log_likelihood(jnp.asarray(THETA))
+    _, tm = pair
+    jll, jfl, yj = jax_runs["theta"]
     tll, tfl = tm.log_likelihood(torch.from_numpy(THETA))
     assert tfl.shape == (2, 5, NC) and tll.shape == (2,)
     np.testing.assert_allclose(tfl.numpy(), np.asarray(jfl), **FLOW_TOL)
@@ -170,7 +179,6 @@ def test_lagged_march_flows_and_loglik_match_jax(pair):
     # The whole final state, not only the outlet row the flows read: 1e-4
     # of each field's largest value (fp32 reassociation and FMA contraction
     # carried through 12 implicit steps; measured 2e-6).
-    yj = jax_march_final_state(jm, THETA)
     yt = torch_march_final_state(tm, THETA)
     assert yt.shape == yj.shape == (7, NX, 2 * NC)
     scale = np.abs(yj).max(axis=(1, 2), keepdims=True)
@@ -184,9 +192,9 @@ def test_lagged_march_flows_and_loglik_match_jax(pair):
                        tm._flows_batch_bl(kin))
 
 
-def test_crazy_kinetics_same_sentinel_lanes_no_nan(pair):
-    jm, tm = pair
-    jll, jfl = jm.log_likelihood(jnp.asarray(CRAZY))
+def test_crazy_kinetics_same_sentinel_lanes_no_nan(pair, jax_runs):
+    _, tm = pair
+    jll, jfl, _ = jax_runs["crazy"]
     tll, tfl = tm.log_likelihood(torch.from_numpy(CRAZY))
     assert not torch.isnan(tll).any() and not torch.isnan(tfl).any()
     np.testing.assert_array_equal(tfl.numpy() == -10000.0,

@@ -4,10 +4,12 @@ sense: the reference has no kernel for it) against the JAX package on the
 CPU, and a whole small tempered-SMC run of the port on the methanation
 likelihood.
 
-The JAX side compiles one march here; the lagged-Jacobian march is in
-``test_torch_methanation.py``.
+The JAX side compiles one march here, once, for the likelihood and the
+final state together; the lagged-Jacobian march is in
+``test_torch_methanation.py``. The two files cannot share a compiled
+march: their schedules differ (pivoted full Newton here, the lagged
+Jacobian there), so their programs do.
 """
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -16,7 +18,7 @@ from smc_tpu_torch import SMCConfig, make_full_run_on_device, run_smc
 from smc_tpu_torch.models import methanation as TM
 from smc_tpu_torch.ops import dae_fast as tdf
 from smc_tpu_torch.smc.diagnostics import failed_solve_count
-from tests.torch_parity import (jax_march_final_state, methanation_pair,
+from tests.torch_parity import (jax_loglik_and_final_state, methanation_pair,
                                 torch_march_final_state)
 
 NX, NC = 11, 2
@@ -36,7 +38,7 @@ def test_pivoted_march_flows_and_loglik_match_jax(pair):
     """Flows at rtol 1e-3 / atol 5e-3 sccm, the tolerance the JAX package
     holds its lanes-major engine to against its per-system one."""
     jm, tm = pair
-    jll, jfl = jm.log_likelihood(jnp.asarray(THETA))
+    ((jll, jfl, yj),) = jax_loglik_and_final_state(jm, (THETA,))
     tll, tfl = tm.log_likelihood(torch.from_numpy(THETA))
     np.testing.assert_allclose(tfl.numpy(), np.asarray(jfl), rtol=1e-3,
                                atol=5e-3)
@@ -44,7 +46,6 @@ def test_pivoted_march_flows_and_loglik_match_jax(pair):
                                atol=0.05)
     assert int(failed_solve_count(tfl)) == 0
     # and the whole final state, at 1e-4 of each field's largest value
-    yj = jax_march_final_state(jm, THETA)
     yt = torch_march_final_state(tm, THETA)
     scale = np.abs(yj).max(axis=(1, 2), keepdims=True)
     assert (np.abs(yt - yj) / scale).max() < 1e-4

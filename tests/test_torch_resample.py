@@ -14,6 +14,7 @@ from smc_tpu.smc import kernels as jk
 from smc_tpu_torch.ops.resample_cuda import (
     sorted_offsets_to_ancestors, sorted_offsets_to_ancestors_plain)
 from smc_tpu_torch.smc import kernels as tk
+import tests.torch_parity  # noqa: F401  (one PyTorch thread)
 
 
 def _offsets(counts):

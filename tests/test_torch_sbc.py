@@ -10,6 +10,7 @@ from smc_tpu.smc import sbc as jsbc
 from smc_tpu_torch import SMCConfig
 from smc_tpu_torch.rng import TorchDraws
 from smc_tpu_torch.smc import sbc as tsbc
+import tests.torch_parity  # noqa: F401  (one PyTorch thread)
 
 L = 63  # posterior rank draws per replicate, as tests/test_sbc.py
 

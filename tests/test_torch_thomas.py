@@ -17,6 +17,7 @@ from smc_tpu.ops import dae_fast as jdf
 from smc_tpu.ops import thomas_pallas as jtp
 from smc_tpu_torch.ops import dae_fast as tdf
 from smc_tpu_torch.ops import thomas_cuda as ttc
+import tests.torch_parity  # noqa: F401  (one PyTorch thread)
 
 NX, NF = 11, 7
 # Per lane, relative to the lane's largest magnitude. 2e-5: the two sides do
@@ -277,8 +278,10 @@ def test_small_block_algebra_matches_jax():
             np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
         else:                    # zero pivot: non-finite in both
             assert not np.isfinite(got).any() and not np.isfinite(want).any()
-    # the pivoted fused solve of the conservative path
-    A, B, C, r = _system(4, seed=9)
+    # the pivoted fused solve of the conservative path, on 3 grid rows
+    # (first, interior, last: every kind of row there is; the JAX side's
+    # compile takes twice as long at 11)
+    A, B, C, r = _system(4, seed=9, nx=3)
     B[-1, 5, 5] = B[-1, 6, 6] = 0.0      # outlet-like permutation block
     B[-1, 5, 6] = B[-1, 6, 5] = 1.0
     got = tdf.block_thomas_bl(*_t(A, B, C, r), pivot=True).numpy()

@@ -1,10 +1,22 @@
 """Helpers for the parity tests of the PyTorch port against the JAX package:
 a ``Draws`` replay of JAX's random stream, and the JAX key-split order of a
-run, so both packages can be fed the same random numbers."""
+run, so both packages can be fed the same random numbers.
+
+Importing this module pins PyTorch to one intra-op and one inter-op thread.
+Every ``tests/test_torch_*.py`` that runs with JAX imports it: the suite
+runs in several worker processes at once, and PyTorch's default of one
+thread per core in each of them oversubscribes the cores several times
+over (the port's tests took twice as long that way)."""
 import numpy as np
 import torch
 
 import jax
+
+torch.set_num_threads(1)
+try:
+    torch.set_num_interop_threads(1)
+except RuntimeError:     # already set, or inter-op work already started
+    pass
 
 
 class ReplayDraws:
@@ -189,37 +201,41 @@ def methanation_pair(n_conditions=2, nx=11, seed=0, **solver_kw):
     return jm, tm
 
 
-def jax_march_final_state(jm, theta):
-    """The JAX model's final DAE state (7, NX, N * n_data) for theta
-    (N, n_est): the steps of its ``_flows_batch_bl`` up to and including
-    the march, so the whole state can be compared and not only the outlet
-    row that the flows read."""
+def jax_loglik_and_final_state(jm, thetas):
+    """For each theta (N, n_est) of ``thetas``: the JAX model's
+    ``log_likelihood`` and the final DAE state (7, NX, N * n_data) of the
+    march that produced its flows, as NumPy arrays. One jitted program,
+    compiled once for every theta of one shape: a march of this size takes
+    about a minute to compile on the CPU, and eager calls compile it anew
+    each time. The state is taken from inside ``log_likelihood``, by
+    wrapping the reference's ``bdf_march_bl`` while the program is traced,
+    so the flows and the whole state come from the same march. N must fit
+    in one particle chunk."""
     import jax.numpy as jnp
-    from smc_tpu.models import methanation as JM
-    from smc_tpu.ops.dae_fast import bdf_march_bl as j_march
+    from unittest import mock
+    from smc_tpu.ops import dae_fast as jdf
 
-    n, nc = theta.shape[0], jm.cond.n_data
-    full = jnp.tile(jnp.asarray(jm.base_params, jnp.float32), (n, 1))
-    full = full.at[:, jnp.asarray(jm.est_idx)].set(jnp.asarray(theta))
-    kin_bl = jnp.repeat(full[:, :8].T, nc, axis=1)
-    condv = jnp.tile(jm._cond_vecs().T, (1, n))
-    y0 = JM.initial_guess(jm.cond, jm.nx)
-    y0 = jnp.tile(jnp.moveaxis(y0, 0, -1).transpose(1, 0, 2), (1, 1, n))
-    flags = JM._grid_flags(jm.nx).T[:, :, None]
+    march = jdf.bdf_march_bl
 
-    def rows(y_m, y, y_p, yd):
-        return JM._rows_bl(y_m, y, y_p, yd, flags, condv, kin_bl)
+    def run(theta):
+        seen = []
 
-    return np.asarray(j_march(
-        rows, y0, jm._dts(), newton_iters=jm.newton_iters, pivot=jm.pivot,
-        analytic_jac=JM._analytic_full_jac(flags, condv, kin_bl),
-        jac_stride=jm.jac_stride, n_dense=jm._n_dense_eff,
-        reuse_iters=jm.reuse_iters, dense_tail=jm.dense_tail,
-        solver="thomas"))
+        def capture(*args, **kwargs):
+            seen.append(march(*args, **kwargs))
+            return seen[-1]
+        with mock.patch.object(jdf, "bdf_march_bl", capture):
+            ll, flows = jm.log_likelihood(theta)
+        assert len(seen) == 1, "one march per call (N within one chunk)"
+        return ll, flows, seen[0]
+
+    fn = jax.jit(run)
+    return [tuple(np.asarray(a) for a in fn(jnp.asarray(t))) for t in thetas]
 
 
 def torch_march_final_state(tm, theta):
-    """The port's counterpart of :func:`jax_march_final_state`."""
+    """The port's final DAE state (7, NX, N * n_data) for theta (N, n_est),
+    the counterpart of the state :func:`jax_loglik_and_final_state`
+    returns."""
     from smc_tpu_torch.ops.dae_fast import bdf_march_bl as t_march
 
     theta = torch.as_tensor(theta)
