@@ -29,7 +29,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("mm_exact.cu", "mm_rk4.cu", "ladder.cu", "merge.cu",
            "thomas_factor.cu", "thomas_apply.cu")
-HEADERS = ("ring.cuh",)        # included by sources; part of the hash
+HEADERS = ("ring.cuh", "div_rn.cuh")  # included by sources; in the hash
 # IEEE expf/logf/division throughout: no --use_fast_math.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

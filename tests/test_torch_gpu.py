@@ -324,6 +324,80 @@ def test_rk4_wrapper_launches_or_raises(cuda):
         mm.mm_loglik_pallas(theta, m.obs, m.s0, m.dt, substeps=0)
 
 
+def _edge_theta(cuda, n, seed, nan_rows=True):
+    """Prior draws U[0, 10]^3 with the edge rows: sigma < 0, sigma = 0,
+    Km = 0 and, for the RK4 kernel, NaN Vmax and Km."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    theta = torch.rand((n, 3), generator=g, device=cuda) * 10.0
+    theta[::7, 2] *= -1.0
+    theta[1::11, 2] = 0.0
+    theta[2::13, 1] = 0.0
+    if nan_rows:
+        theta[3::17, 0] = math.nan
+        theta[4::19, 1] = math.nan
+    return theta, g
+
+
+def _term_scale(theta, ll, n_ds, n_obs):
+    sigma = theta[:, 2].clamp_min(1e-12)
+    t1 = (-0.5 * n_ds * n_obs) * (math.log(2 * math.pi)
+                                  + 2 * torch.log(sigma))
+    return torch.maximum(t1.abs(), (t1 - ll).abs())
+
+
+# n_ds = 5 and 6 take mm_rk4's template instances, 1, 3 and 7 its generic
+# path (mm_exact has one path for every count); N is ragged against every
+# block size.
+@pytest.mark.parametrize("n_ds,n", [(6, 1037), (5, 999), (1, 1037), (3, 1037),
+                                    (7, 515)])
+def test_mm_exact_kernel_at_every_dataset_count(cuda, n_ds, n):
+    """csrc/mm_exact.cu against its plain version, two populations: the
+    same -inf rows, rtol 1e-5 of the larger ll term elsewhere, and the
+    same bits on a second launch."""
+    theta, g = _edge_theta(cuda, 2 * n, 100 + n_ds, nan_rows=False)
+    theta = theta.reshape(2, n, 3).contiguous()
+    obs = (torch.rand((2, n_ds, 40), generator=g, device=cuda) * 2.0)
+    s0 = 0.1 + 3.0 * torch.rand((2, n_ds), generator=g, device=cuda)
+    _build.reset_launch_counts()
+    got = mm.mm_loglik_exact_batched(theta, obs, s0, 0.25)
+    assert _build.launch_counts["mm_exact"] == 1
+    want = mm.mm_loglik_exact_plain(theta, obs, s0, 0.25)
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    assert not bool(torch.isnan(got).any())
+    fin = torch.isfinite(want)
+    scale = _term_scale(theta[fin], want[fin], n_ds, 40)
+    assert bool(((got[fin] - want[fin]).abs() <= 1e-5 * scale).all())
+    assert torch.equal(mm.mm_loglik_exact_batched(theta, obs, s0, 0.25), got)
+    # one population through the batched entry: the same bits per row
+    one = mm.mm_loglik_exact(theta[1].contiguous(), obs[1].contiguous(),
+                             s0[1].contiguous(), 0.25)
+    assert torch.equal(one, got[1])
+
+
+@pytest.mark.parametrize("n_ds,n", [(6, 1037), (5, 999), (1, 1037), (3, 1037),
+                                    (7, 515)])
+def test_mm_rk4_kernel_at_every_dataset_count(cuda, n_ds, n):
+    """csrc/mm_rk4.cu against its plain version on prior draws: the same
+    -inf rows and never a NaN (Km = 0 and NaN rows included), within 5e-5
+    of the larger ll term where Km >= 0.3, and the same bits on a second
+    launch."""
+    theta, g = _edge_theta(cuda, n, 200 + n_ds)
+    obs = torch.rand((n_ds, 40), generator=g, device=cuda) * 2.0
+    s0 = 0.1 + 3.0 * torch.rand((n_ds,), generator=g, device=cuda)
+    _build.reset_launch_counts()
+    got = mm.mm_loglik_pallas(theta, obs, s0, 0.25, 4)
+    assert _build.launch_counts["mm_rk4"] == 1
+    want = mm.mm_loglik_rk4_plain(theta, obs, s0, 0.25, 4)
+    assert not bool(torch.isnan(got).any())
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    assert bool(torch.isneginf(got[::7]).all())
+    assert bool(torch.isneginf(got[3::17]).all())
+    ok = torch.isfinite(want) & (theta[:, 1] >= 0.3)
+    scale = _term_scale(theta[ok], want[ok], n_ds, 40)
+    assert bool(((got[ok] - want[ok]).abs() <= 5e-5 * scale).all())
+    assert torch.equal(mm.mm_loglik_pallas(theta, obs, s0, 0.25, 4), got)
+
+
 @pytest.mark.parametrize("d,n", [(64, 2048), (5, 70001), (1, 100000)])
 def test_batched_ladder_kernel(cuda, d, n):
     """(D, N) x (D, K): against the plain form (rtol 1e-5), the same bits

@@ -10,6 +10,7 @@ import torch
 from smc_tpu.models.michaelis_menten import generate_mm_pseudo_data as jgen
 from smc_tpu.ops.mm_pallas import mm_loglik_pallas as j_mm_loglik_pallas
 from smc_tpu_torch import SMCConfig, convert, make_full_run_on_device
+from smc_tpu_torch.ops import mm_cuda
 from smc_tpu_torch.ops.mm_cuda import mm_loglik_pallas, mm_loglik_rk4_plain
 from tests.torch_parity import assert_ll_close
 
@@ -20,6 +21,9 @@ _PRIOR = dict(kind=[0, 0, 0], low=[0.0] * 3, high=[10.0] * 3,
 # such last-bit differences along. 2e-5 of the larger of ll's two terms
 # holds them on stable draws (measured: 1.1e-6 at N = 1000).
 RTOL = 2e-5
+# chip_smoke.py holds the CUDA kernel to its plain version only where
+# Km >= 0.3: below it fixed-step RK4 in fp32 is chaotic.
+RK4_STABLE_KM = 0.3
 
 
 @pytest.fixture(scope="module")
@@ -166,3 +170,68 @@ def test_run_with_method_pallas_reaches_gamma_one(data):
     assert abs(mean[1] - 0.5) < 4 * std[1] + 0.05
     assert abs(mean[2] - 0.02) < 4 * std[2] + 0.01
     assert bool(torch.isfinite(s.log_lik).all())
+
+
+def _march_flushed(theta, obs, s0, dt, substeps=4):
+    """mm_loglik_rk4_plain with one change, as csrc/mm_rk4.cu makes it: a
+    state below FLT_MIN in magnitude is set to 0 after every step. Also
+    returns, per row, whether the unflushed state would have been
+    subnormal there."""
+    n_ds, n_obs = obs.shape
+    vmax, km, sig = theta[None, :, 0], theta[None, :, 1], theta[:, 2]
+    s0c = s0[:, None]
+    h, half_h, h_sixth = mm_cuda._rk4_steps(dt, substeps)
+    tiny = torch.finfo(torch.float32).tiny
+
+    def f(S):
+        return -vmax * S / (km + S)
+
+    S = s0c.expand(n_ds, theta.shape[0])
+    under = torch.zeros(S.shape, dtype=torch.bool)
+    r0 = obs[:, 0:1] - (s0c - S)
+    acc = torch.zeros_like(r0) + r0 * r0
+    for i in range(1, n_obs):
+        for _ in range(substeps):
+            k1 = f(S)
+            k2 = f(S + half_h * k1)
+            k3 = f(S + half_h * k2)
+            k4 = f(S + h * k3)
+            S = S + h_sixth * (k1 + 2 * k2 + 2 * k3 + k4)
+            small = S.abs() < tiny
+            under |= small & (S != 0)
+            S = torch.where(small, torch.zeros_like(S), S)
+        r = obs[:, i:i + 1] - (s0c - S)
+        acc = acc + r * r
+    total = acc[0]
+    for ds in range(1, n_ds):
+        total = total + acc[ds]
+    sigma = torch.maximum(sig, theta.new_tensor(1e-12))
+    ll = ((-0.5 * n_obs * n_ds) * (mm_cuda._LOG2PI + 2.0 * torch.log(sigma))
+          - total / (2.0 * sigma * sigma))
+    bad = (sig <= 0.0) | torch.isnan(ll)
+    return torch.where(bad, theta.new_tensor(-np.inf), ll), under.any(0)
+
+
+def test_flushing_subnormal_state_keeps_the_likelihood_bits(data):
+    """What csrc/mm_rk4.cu rests on: on prior draws, many of whose states
+    decay below FLT_MIN, setting such a state to 0 after every step gives
+    the same ll bits as the unflushed march wherever Km >= RK4_STABLE_KM
+    (s0 - S is s0 for any S that small), and the same -inf rows
+    everywhere, Km = 0 and NaN rows included."""
+    ts, obs, s0, dt = data
+    rng = np.random.default_rng(11)
+    theta = (rng.random((4096, 3)) * 10.0).astype(np.float32)
+    theta[::97, 2] *= -1.0
+    theta[1::101, 2] = 0.0
+    theta[2::89, 1] = 0.0
+    theta[3::113, 0] = np.nan
+    theta[4::127, 1] = np.nan
+    th, o, s = (torch.from_numpy(a) for a in (theta, obs, s0))
+    want = mm_loglik_rk4_plain(th, o, s, dt)
+    got, under = _march_flushed(th, o, s, dt)
+    assert int(under.sum()) > 100          # the flush is exercised
+    assert torch.equal(torch.isneginf(got), torch.isneginf(want))
+    assert not bool(torch.isnan(got).any())
+    stable = th[:, 1] >= RK4_STABLE_KM
+    assert int((under & stable).sum()) > 100
+    assert torch.equal(got[stable], want[stable])
