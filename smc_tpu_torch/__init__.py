@@ -10,7 +10,9 @@ solves of the methanation DAE, the gamma ladder and the ancestor build run
 on hand-written Hopper kernels (``smc_tpu_torch/csrc``); on the CPU their
 plain PyTorch versions run. The hierarchical ensemble (``smc/ensemble.py``)
 and the SBC harness on it (``smc/sbc.py``) run D populations through the
-same kernels, one launch for all.
+same kernels, one launch for all. On CUDA the run entry points replay the
+SMC step's pieces as captured CUDA graphs (``smc/graphs.py``); on the CPU
+the same pieces run eagerly.
 """
 import torch
 
@@ -23,8 +25,10 @@ from smc_tpu_torch.config import SMCConfig  # noqa: E402
 from smc_tpu_torch.priors import Prior  # noqa: E402
 from smc_tpu_torch.rng import Draws, TorchDraws  # noqa: E402
 from smc_tpu_torch.smc.state import SMCState  # noqa: E402
-from smc_tpu_torch.smc.driver import (init_state,  # noqa: E402
-                                      make_full_run_on_device, run_smc,
+from smc_tpu_torch.smc.driver import (StopRequested,  # noqa: E402
+                                      init_state, make_full_run_on_device,
+                                      make_run_on_device, make_smc_step,
+                                      make_sweep_step_fns, run_smc,
                                       run_smc_on_device, smc_step)
 from smc_tpu_torch.smc.ensemble import (init_ensemble,  # noqa: E402
                                         make_ensemble_run,

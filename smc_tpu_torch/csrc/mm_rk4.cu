@@ -47,7 +47,10 @@
 //   except as mm_rate says, where ll cannot see it.
 // - No subnormal state (above).
 // - obs and s0 sit in shared memory, read by all threads of a block at the
-//   same address (a broadcast). The TPU kernel's (1, block) lane blocks, its
+//   same address (a broadcast). An ensemble's populations ride grid.y: block
+//   (x, b) marches particles of population b against b's own obs and s0,
+//   so one launch covers all of them, as Pallas's batching rule makes the
+//   population a grid axis of the TPU kernel under vmap. The TPU kernel's (1, block) lane blocks, its
 //   static unroll over the grid and its padding of the particle axis with
 //   ones were layout artefacts of that machine and are dropped: the time
 //   loop is a loop, and the ragged tail is masked.
@@ -173,14 +176,16 @@ mm_rk4_kernel(const float* __restrict__ theta, const float* __restrict__ obs,
   extern __shared__ float smem[];  // obs (n_ds, n_obs), then s0 (n_ds)
   float* obs_s = smem;
   float* s0_s = smem + n_ds * n_obs;
+  const size_t b = blockIdx.y;  // population
   for (int i = threadIdx.x; i < n_ds * n_obs; i += blockDim.x)
-    obs_s[i] = obs[i];
-  for (int i = threadIdx.x; i < n_ds; i += blockDim.x) s0_s[i] = s0[i];
+    obs_s[i] = obs[b * n_ds * n_obs + i];
+  for (int i = threadIdx.x; i < n_ds; i += blockDim.x)
+    s0_s[i] = s0[b * n_ds + i];
   __syncthreads();
 
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= n) return;  // ragged tail: masked, not padded
-  const float* th = theta + static_cast<size_t>(p) * 3;
+  const float* th = theta + (b * n + p) * 3;
   const float vmax = th[0];
   const float km = th[1];
   const float sig = th[2];
@@ -206,41 +211,42 @@ mm_rk4_kernel(const float* __restrict__ theta, const float* __restrict__ obs,
   const float out = (-0.5f * n_obs * n_ds) * (kLog2Pi + 2.0f * logf(sigma)) -
                     total / (2.0f * sigma * sigma);
   const bool bad = (sig <= 0.0f) || (out != out);
-  ll[p] = bad ? -INFINITY : out;
+  ll[b * n + p] = bad ? -INFINITY : out;
 }
 
 template <int NDS>
 void launch(const float* theta, const float* obs, const float* s0, float* ll,
-            int n, int n_ds, int n_obs, int substeps, float h, float half_h,
-            float h_sixth, cudaStream_t stream) {
+            int b, int n, int n_ds, int n_obs, int substeps, float h,
+            float half_h, float h_sixth, cudaStream_t stream) {
+  const dim3 grid((n + kThreads - 1) / kThreads, b);
   const size_t smem = static_cast<size_t>(n_ds * n_obs + n_ds) * sizeof(float);
-  mm_rk4_kernel<NDS><<<(n + kThreads - 1) / kThreads, kThreads, smem,
-                       stream>>>(theta, obs, s0, ll, n, n_ds, n_obs, substeps,
-                                 h, half_h, h_sixth);
+  mm_rk4_kernel<NDS><<<grid, kThreads, smem, stream>>>(
+      theta, obs, s0, ll, n, n_ds, n_obs, substeps, h, half_h, h_sixth);
 }
 
 }  // namespace
 
-// theta (n, 3), obs (n_ds, n_obs), s0 (n_ds) -> ll (n); all float32,
-// contiguous, on the device of `stream`. h = dt / substeps, half_h = 0.5 h
-// and h_sixth = h / 6, each computed in double by the caller.
+// theta (b, n, 3), obs (b, n_ds, n_obs), s0 (b, n_ds) -> ll (b, n); all
+// float32, contiguous, on the device of `stream`; b <= 65535. h = dt /
+// substeps, half_h = 0.5 h and h_sixth = h / 6, each computed in double by
+// the caller.
 extern "C" int mm_rk4_launch(const float* theta, const float* obs,
-                             const float* s0, float* ll, int n, int n_ds,
-                             int n_obs, int substeps, float h, float half_h,
-                             float h_sixth, void* stream) {
-  if (n == 0) return 0;
+                             const float* s0, float* ll, int b, int n,
+                             int n_ds, int n_obs, int substeps, float h,
+                             float half_h, float h_sixth, void* stream) {
+  if (b == 0 || n == 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (n_ds) {
     case 6:
-      launch<6>(theta, obs, s0, ll, n, n_ds, n_obs, substeps, h, half_h,
+      launch<6>(theta, obs, s0, ll, b, n, n_ds, n_obs, substeps, h, half_h,
                 h_sixth, st);
       break;
     case 5:
-      launch<5>(theta, obs, s0, ll, n, n_ds, n_obs, substeps, h, half_h,
+      launch<5>(theta, obs, s0, ll, b, n, n_ds, n_obs, substeps, h, half_h,
                 h_sixth, st);
       break;
     default:
-      launch<0>(theta, obs, s0, ll, n, n_ds, n_obs, substeps, h, half_h,
+      launch<0>(theta, obs, s0, ll, b, n, n_ds, n_obs, substeps, h, half_h,
                 h_sixth, st);
   }
   return static_cast<int>(cudaGetLastError());

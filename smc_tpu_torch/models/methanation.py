@@ -90,6 +90,14 @@ def _const(values: Tuple[float, ...], device: torch.device,
     return torch.tensor(values, dtype=dtype, device=device)[:, None, None]
 
 
+@functools.lru_cache(maxsize=None)
+def _row(values: Tuple, device: torch.device,
+         dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``values`` as a 1-D tensor (an int64 index for ``dtype`` None), made
+    once per device, for the same reason; none of these is ever written."""
+    return torch.tensor(values, dtype=dtype, device=device)
+
+
 def rate_rCH4(T, Ca, Cb, Cc, Cd, kin):
     """LHHW methanation rate, mol/(m^3 s)."""
     PH2 = Ca * R_GAS * T * 1e-6
@@ -213,8 +221,10 @@ def make_condition_table(n_conditions: int = 30, nx: int = NX,
 # ---------------------------------------------------------------------------
 # DAE residual (batch-last rows) and its Jacobian
 # ---------------------------------------------------------------------------
+@functools.lru_cache(maxsize=None)
 def _grid_flags(nx: int, device="cpu") -> torch.Tensor:
-    """(nx, 3) floats = [is_inlet, is_first_interior, is_outlet]."""
+    """(nx, 3) floats = [is_inlet, is_first_interior, is_outlet], made once
+    per device (never written)."""
     f = np.zeros((nx, 3), np.float32)
     f[0, 0] = 1.0
     f[1, 1] = 1.0
@@ -593,7 +603,7 @@ class MethanationModel:
         padded layout."""
         nc = self.cond.n_data
         n = kin_b.shape[0]
-        kin_bl = kin_b.T.repeat_interleave(nc, dim=1)      # (8, B)
+        kin_bl = kin_b.T[:, :, None].expand(-1, n, nc).reshape(-1, n * nc)
         condv = self._cond_vecs().T.repeat(1, n)           # (5, B)
         y0 = initial_guess(self.cond, self.nx)             # (nc, NX, 7)
         y0 = y0.permute(2, 1, 0).repeat(1, 1, n)           # (7, NX, B)
@@ -660,8 +670,10 @@ class MethanationModel:
         """theta (N, n_est) -> (flows (N, 5, n_data), sigma (N,)): the part
         of the likelihood that does not read the observations."""
         n = theta.shape[0]
-        full = theta.new_tensor(self.base_params).repeat(n, 1)
-        full[:, list(self.est_idx)] = theta
+        # No host-to-device copy per call (a captured graph could not hold
+        # one): the base row and the index are made once per device.
+        full = _row(self.base_params, theta.device, theta.dtype).repeat(n, 1)
+        full.index_copy_(1, _row(self.est_idx, theta.device), theta)
         kin_b, sigma = full[:, :8], full[:, 8]
 
         chunk = min(self.particle_chunk, n)

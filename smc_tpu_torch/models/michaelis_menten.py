@@ -31,7 +31,8 @@ from smc_tpu_torch.config import resolve_device
 from smc_tpu_torch.ops.lambertw import lambertw
 from smc_tpu_torch.ops.mm_cuda import (mm_loglik_exact,
                                        mm_loglik_exact_batched,
-                                       mm_loglik_pallas)
+                                       mm_loglik_pallas,
+                                       mm_loglik_pallas_batched)
 from smc_tpu_torch.ops.ode import rk4_grid
 from smc_tpu_torch.priors import Prior
 
@@ -191,11 +192,10 @@ def make_mm_data_loglik(ts, s0, method: str = "exact", substeps: int = 4):
     populations at once over the shared grid ``ts`` (T,) and initial
     substrates ``s0`` (n_ds,), tensors on the run's device.
 
-    ``pallas_exact`` is one launch of ``csrc/mm_exact.cu`` for all D
-    populations; ``exact`` and ``rk4`` run the model's arithmetic on the
-    flattened D * N particles, each held against its population's
-    observations; ``pallas`` launches ``csrc/mm_rk4.cu`` once per population
-    (that kernel has no population axis).
+    ``pallas_exact`` is one launch of ``csrc/mm_exact.cu`` and ``pallas``
+    one launch of ``csrc/mm_rk4.cu`` for all D populations; ``exact`` and
+    ``rk4`` run the model's arithmetic on the flattened D * N particles,
+    each held against its population's observations.
     """
     if method not in METHODS:
         raise NotImplementedError(
@@ -210,9 +210,10 @@ def make_mm_data_loglik(ts, s0, method: str = "exact", substeps: int = 4):
                 s0[None].expand(d, -1).contiguous(), dt)
             return ll, None
         if method == "pallas":
-            return torch.stack([
-                mm_loglik_pallas(theta[i].contiguous(), obs[i].contiguous(),
-                                 s0, dt, substeps) for i in range(d)]), None
+            ll = mm_loglik_pallas_batched(
+                theta.contiguous(), obs.contiguous(),
+                s0[None].expand(d, -1).contiguous(), dt, substeps)
+            return ll, None
         flat = theta.reshape(d * n, 3)
         S = _substrate(method, flat[:, 0], flat[:, 1], s0, ts, substeps)
         P_model = (s0[None, :, None] - S).reshape(S.shape[0], -1, d, n)

@@ -13,6 +13,7 @@ wrappers raise when that is not 0.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -38,8 +39,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # theta, obs, s0, ll, b, n, n_ds, n_obs, dt, stream
     "mm_exact_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
-    # theta, obs, s0, ll, n, n_ds, n_obs, substeps, h, h/2, h/6, stream
-    "mm_rk4_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P),
+    # theta, obs, s0, ll, b, n, n_ds, n_obs, substeps, h, h/2, h/6, stream
+    "mm_rk4_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _P),
     # d_ll, dg, partial, s1, s2, b, n, k, stream
     "ladder_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     # n -> the ladder grid's particle-tile extent (no launch)
@@ -58,7 +59,10 @@ _SIGNATURES = {
 }
 
 # Launches of each kernel since the last reset (plain ints; each wrapper
-# adds one right after its kernel launched, and nowhere else).
+# adds one right after its kernel launched, and nowhere else). Under CUDA
+# graph capture a wrapper runs once and its kernel on every replay:
+# ``launches_of`` takes the captured launches back out and keeps them per
+# graph, ``count_replay`` adds them for each replay (smc/graphs.py).
 launch_counts = {"mm_exact": 0, "mm_rk4": 0, "ladder": 0, "merge": 0,
                  "thomas_factor": 0, "thomas_apply": 0,
                  "thomas_apply_tiled": 0}
@@ -67,6 +71,25 @@ launch_counts = {"mm_exact": 0, "mm_rk4": 0, "ladder": 0, "merge": 0,
 def reset_launch_counts() -> None:
     for k in launch_counts:
         launch_counts[k] = 0
+
+
+@contextlib.contextmanager
+def launches_of(record: dict):
+    """Record into ``record`` the launches counted inside the block, and
+    take them back out of ``launch_counts`` (a capture or a warm-up)."""
+    before = dict(launch_counts)
+    try:
+        yield record
+    finally:
+        for k, v in launch_counts.items():
+            record[k] = v - before[k]
+            launch_counts[k] = before[k]
+
+
+def count_replay(record: dict) -> None:
+    """One replay of a graph whose capture recorded ``record``."""
+    for k, v in record.items():
+        launch_counts[k] += v
 
 
 def _nvcc() -> str:

@@ -343,7 +343,11 @@ def bdf_march_bl(rows_bl: Callable,
     residual, build_blocks, factor_, apply_ = _newton_kit(
         rows_bl, y0, pivot, analytic_jac, solver)
     if isinstance(dts, torch.Tensor):
-        dts = dts.detach().cpu().numpy()
+        if dts.device.type != "cpu":
+            raise ValueError("dts must be a host array: reading a device "
+                             "tensor would make every march wait for the "
+                             "device")
+        dts = dts.detach().numpy()
     dts = np.asarray(dts, _f32)
     one, two = _f32(1.0), _f32(2.0)
 

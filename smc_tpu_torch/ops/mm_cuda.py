@@ -2,8 +2,9 @@
 
 Port of ``smc_tpu/ops/mm_pallas.py``: the closed form
 (``mm_loglik_exact_pallas`` and its batched form, kernel
-``csrc/mm_exact.cu``) and the fixed-step RK4 march (``mm_loglik_pallas``,
-kernel ``csrc/mm_rk4.cu``). Each plain PyTorch version below repeats its
+``csrc/mm_exact.cu``) and the fixed-step RK4 march (``mm_loglik_pallas``
+and its batched form, the JAX function under ``vmap``, kernel
+``csrc/mm_rk4.cu``). Each plain PyTorch version below repeats its
 kernel's arithmetic op for op. A CUDA tensor launches the kernel (or
 raises); a CPU tensor takes the plain version.
 """
@@ -133,24 +134,30 @@ def _rk4_steps(dt: float, substeps: int):
 def mm_loglik_rk4_plain(theta: torch.Tensor, obs: torch.Tensor,
                         s0: torch.Tensor, dt: float,
                         substeps: int = 4) -> torch.Tensor:
-    """theta (N, 3), obs (n_ds, T), s0 (n_ds,) -> ll (N,).
+    """theta (B, N, 3), obs (B, n_ds, T), s0 (B, n_ds) -> ll (B, N); or one
+    population, theta (N, 3), obs (n_ds, T), s0 (n_ds,) -> ll (N,).
 
     Plain PyTorch form of ``csrc/mm_rk4.cu``: ``substeps`` classical RK4
     steps per grid interval on f(S) = -Vmax S / (Km + S) with the state
-    (n_ds, N), the same operations in the same order. Km is not clamped;
-    a NaN result comes out as -inf.
+    (B, n_ds, N), the same operations in the same order, each population
+    against its own observations. Km is not clamped; a NaN result comes out
+    as -inf.
     """
-    n_ds, n_obs = obs.shape
+    if theta.dim() == 2:
+        return mm_loglik_rk4_plain(theta[None], obs[None], s0[None], dt,
+                                   substeps)[0]
+    n_ds, n_obs = obs.shape[1], obs.shape[2]
     one = theta.new_tensor
-    vmax, km, sig = theta[None, :, 0], theta[None, :, 1], theta[:, 2]
-    s0c = s0[:, None]                                        # (n_ds, 1)
+    vmax, km = theta[:, None, :, 0], theta[:, None, :, 1]   # (B, 1, N)
+    sig = theta[..., 2]                                      # (B, N)
+    s0c = s0[:, :, None]                                     # (B, n_ds, 1)
     h, half_h, h_sixth = _rk4_steps(dt, substeps)
 
     def f(S):
         return -vmax * S / (km + S)
 
-    S = s0c.expand(n_ds, theta.shape[0])
-    r0 = obs[:, 0:1] - (s0c - S)
+    S = s0c.expand(theta.shape[0], n_ds, theta.shape[1])
+    r0 = obs[:, :, 0:1] - (s0c - S)
     acc = torch.zeros_like(r0) + r0 * r0
     for i in range(1, n_obs):
         for _ in range(substeps):
@@ -159,11 +166,11 @@ def mm_loglik_rk4_plain(theta: torch.Tensor, obs: torch.Tensor,
             k3 = f(S + half_h * k2)
             k4 = f(S + h * k3)
             S = S + h_sixth * (k1 + 2 * k2 + 2 * k3 + k4)
-        r = obs[:, i:i + 1] - (s0c - S)
+        r = obs[:, :, i:i + 1] - (s0c - S)
         acc = acc + r * r
-    total = acc[0]
+    total = acc[:, 0]
     for ds in range(1, n_ds):
-        total = total + acc[ds]
+        total = total + acc[:, ds]
     sigma = torch.maximum(sig, one(1e-12))
     ll = ((-0.5 * n_obs * n_ds) * (_LOG2PI + 2.0 * torch.log(sigma))
           - total / (2.0 * sigma * sigma))
@@ -171,12 +178,13 @@ def mm_loglik_rk4_plain(theta: torch.Tensor, obs: torch.Tensor,
     return torch.where(bad, one(-math.inf), ll)
 
 
-def mm_loglik_pallas(theta: torch.Tensor, obs: torch.Tensor,
-                     s0: torch.Tensor, dt: float,
-                     substeps: int = 4) -> torch.Tensor:
-    """theta (N, 3), obs (n_ds, T), s0 (n_ds,), dt = uniform grid spacing
-    -> ll (N,), float32: the fixed-step RK4 likelihood behind the model's
-    ``method="pallas"`` (named as in the JAX package).
+def mm_loglik_pallas_batched(theta: torch.Tensor, obs: torch.Tensor,
+                             s0: torch.Tensor, dt: float,
+                             substeps: int = 4) -> torch.Tensor:
+    """theta (B, N, 3), obs (B, n_ds, T), s0 (B, n_ds), dt = uniform grid
+    spacing -> ll (B, N), float32: the fixed-step RK4 likelihood of B
+    populations, each with its own observations, in one launch (grid.y),
+    as the JAX package's ``mm_loglik_pallas`` under ``vmap``.
 
     CUDA tensors launch ``csrc/mm_rk4.cu``; CPU tensors take
     :func:`mm_loglik_rk4_plain`.
@@ -186,24 +194,34 @@ def mm_loglik_pallas(theta: torch.Tensor, obs: torch.Tensor,
     if theta.device.type != "cuda":
         raise ValueError(f"unsupported device {theta.device}")
     dev = theta.device
-    _build.check_input(theta, "theta", torch.float32, 2, dev)
-    _build.check_input(obs, "obs", torch.float32, 2, dev)
-    _build.check_input(s0, "s0", torch.float32, 1, dev)
-    n = theta.shape[0]
-    n_ds, n_obs = obs.shape
-    if theta.shape[1] != 3 or s0.shape[0] != n_ds:
+    _build.check_input(theta, "theta", torch.float32, 3, dev)
+    _build.check_input(obs, "obs", torch.float32, 3, dev)
+    _build.check_input(s0, "s0", torch.float32, 2, dev)
+    b, n = theta.shape[0], theta.shape[1]
+    n_ds, n_obs = obs.shape[1], obs.shape[2]
+    if theta.shape[2] != 3 or obs.shape[0] != b or tuple(s0.shape) != (b, n_ds):
         raise ValueError(f"shape mismatch: theta {tuple(theta.shape)}, obs "
                          f"{tuple(obs.shape)}, s0 {tuple(s0.shape)}")
     if n_obs < 1 or (n_ds * n_obs + n_ds) * 4 > 48 * 1024:
         raise ValueError("obs must hold 1 to ~12k points (shared memory)")
-    if n >= 2 ** 31 or substeps < 1:
-        raise ValueError("N must be < 2^31 and substeps >= 1")
-    ll = torch.empty(n, dtype=torch.float32, device=dev)
+    if n >= 2 ** 31 or b > 65535 or substeps < 1:
+        raise ValueError("N must be < 2^31, B <= 65535 and substeps >= 1")
+    ll = torch.empty((b, n), dtype=torch.float32, device=dev)
     h, half_h, h_sixth = _rk4_steps(dt, substeps)
     err = _build.load().mm_rk4_launch(
         theta.data_ptr(), obs.data_ptr(), s0.data_ptr(), ll.data_ptr(),
-        n, n_ds, n_obs, int(substeps), h, half_h, h_sixth,
+        b, n, n_ds, n_obs, int(substeps), h, half_h, h_sixth,
         _build.stream_ptr(theta))
     _build.check(err, "mm_rk4")
     _build.launch_counts["mm_rk4"] += 1
     return ll
+
+
+def mm_loglik_pallas(theta: torch.Tensor, obs: torch.Tensor,
+                     s0: torch.Tensor, dt: float,
+                     substeps: int = 4) -> torch.Tensor:
+    """theta (N, 3), obs (n_ds, T), s0 (n_ds,) -> ll (N,): one population
+    of :func:`mm_loglik_pallas_batched`, the likelihood behind the model's
+    ``method="pallas"`` (named as in the JAX package)."""
+    return mm_loglik_pallas_batched(theta[None], obs[None], s0[None], dt,
+                                    substeps)[0]

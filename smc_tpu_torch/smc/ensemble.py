@@ -18,6 +18,9 @@ over D.
 - The host waits for the device once per ensemble step (is any gamma below
   1?) and once per ensemble sweep after the first (is any population still
   active?); it never reads a per-population value.
+- On CUDA the entry points replay the step's pieces as captured CUDA graphs
+  (smc/graphs.py), the JAX package's jitted programs; the un-captured
+  pieces of :func:`make_ensemble_sweep_fns` stay public and eager.
 
 ``loglik_fn(theta (D, N, d), data) -> (log_lik (D, N), aux)`` is batched
 over the populations (the JAX package's is per population, under vmap);
@@ -25,10 +28,9 @@ over the populations (the JAX package's is per population, under vmap);
 ensemble draws from ONE ``Draws`` (rng.py gives the order), where the JAX
 package splits a key per dataset.
 
-PyTorch runs eagerly, so the JAX package's fused ``while_loop`` program and
-its sweep-granularity run are one loop here, with and without polling:
-:func:`make_ensemble_run` and :func:`run_ensemble_sweeps` give the same
-state from the same seed.
+The JAX package's fused ``while_loop`` program and its sweep-granularity run
+are one loop here, with and without polling: :func:`make_ensemble_run` and
+:func:`run_ensemble_sweeps` give the same state from the same seed.
 """
 from __future__ import annotations
 
@@ -40,9 +42,12 @@ import torch
 from smc_tpu_torch.config import SMCConfig
 from smc_tpu_torch.priors import Prior
 from smc_tpu_torch.rng import as_draws
-from smc_tpu_torch.smc.driver import _advance, _resample, _stop_requested
-from smc_tpu_torch.smc.kernels import (MutationResult, _over, find_gamma,
-                                       make_mutation_sweeper)
+from smc_tpu_torch.smc import graphs
+from smc_tpu_torch.smc.driver import (StopRequested, _advance, _resample,
+                                      _running, _stop_requested, run_step)
+from smc_tpu_torch.smc.kernels import (_over, find_gamma,
+                                       make_mutation_sweeper,
+                                       mutation_result, sweep_limit)
 from smc_tpu_torch.smc.state import SMCState
 
 # loglik_fn(theta (D, N, d), data) -> (log_lik (D, N), aux)
@@ -149,60 +154,81 @@ def make_ensemble_sweep_fns(prior: Prior, loglik_fn: DataLogLik,
         return sweeper(data)[1](c, gamma, active)
 
     def finish(states: SMCState, key, g, c) -> SMCState:
-        m = MutationResult(c.particles, c.log_lik, c.j,
-                           torch.sum(c.r_ac, dim=-1), c.mh_ratio)
-        new = _advance(states.replace(key=key), g, m, cfg)
+        new = _advance(states.replace(key=key), g, mutation_result(c), cfg)
         return _freeze(states.gamma >= 1.0, states, new)
 
     return einit, prep, mut_init, mut_sweep, finish
 
 
-def _running(states: SMCState, cfg: SMCConfig) -> bool:
-    """The loop condition, read from the device once per ensemble step."""
-    return bool(torch.any((states.gamma < 1.0)
-                          & (states.step < cfg.max_steps)).item())
+def _step_pieces(fns, cfg: SMCConfig) -> graphs.Pieces:
+    """:func:`make_ensemble_sweep_fns`'s pieces cut at the seams of
+    smc/graphs.py. ``p`` is (gamma search, particles, log_lik, sweep
+    limit, frozen): populations at gamma >= 1 before the step are frozen.
+    A population sweeps while it is not frozen, its sweeps are not done
+    and it has not stopped early; ``more`` is "any population sweeps"."""
+    einit, prep, mut_init, mut_sweep, finish = fns
+
+    def active(c, p):
+        return ~c.done & (c.j < p[3]) & ~p[4]
+
+    def init(key, data):
+        s = einit(key, data)
+        return s, _running(s, cfg)
+
+    def u_prep(s, data):
+        _, _, g, parts, lk = prep(s)
+        return g, parts, lk, sweep_limit(g.gamma, cfg), s.gamma >= 1.0
+
+    def u_mut_init(s, p, data):
+        c = mut_init(s.key, p[1], p[2], data)
+        c = mut_sweep(c, p[0].gamma, data, active(c, p))
+        return c, torch.any(active(c, p))
+
+    def u_mut_sweep(s, p, c, data):
+        c = mut_sweep(c, p[0].gamma, data, active(c, p))
+        return c, torch.any(active(c, p))
+
+    def u_finish(s, p, c, data):
+        new = finish(s, s.key, p[0], c)
+        return new, _running(new, cfg)
+
+    return graphs.Pieces(init, u_prep, u_mut_init, u_mut_sweep, u_finish)
 
 
-def _run(states: SMCState, data, fns, cfg: SMCConfig, n_datasets: int,
-         verbose: bool = False, callback=None, stop_file=None) -> SMCState:
-    """The ensemble loop behind both entry points. The first sweep of a
-    step needs no read (the step runs because some population is below
-    gamma = 1, and that one is active); every later sweep is preceded by
-    one read of ``any(active)``."""
-    _, prep, mut_init, mut_sweep, finish = fns
-    while _running(states, cfg):
+def _run(programs: graphs.Programs, states: Optional[SMCState], key, data,
+         cfg: SMCConfig, n_datasets: int, verbose: bool = False,
+         callback=None, stop_file=None) -> SMCState:
+    """The ensemble loop behind both entry points: from ``states``, or
+    from the prior draw with ``key``; the returned state is a copy. The
+    stop file is polled before every step and every sweep after a step's
+    first; the pre-step states go back, so the caller gets the last
+    COMPLETED step either way."""
+    dev = data.device if states is None else states.particles.device
+    pcs, s, data = programs.on(dev, states, data)
+    if s is None:
+        s, running = pcs.init(as_draws(key, dev), data)
+    else:
+        running = _running(s, cfg)
+    while graphs.read(running):
         if _stop_requested(stop_file):
             print(f"run_ensemble_sweeps: stop file {stop_file} present — "
-                  f"returning at max step {int(states.step.max())}",
-                  flush=True)
-            return states
-        key, k_mh, g, parts, lk = prep(states)
-        n_mh = torch.where(g.gamma >= 1.0, cfg.mh_steps_final, cfg.mh_steps)
-        frozen = states.gamma >= 1.0
-        c = mut_init(k_mh, parts, lk, data)
-        first = True
-        while True:
-            # Polled between sweeps too; the pre-step states go back, so
-            # the caller gets the last COMPLETED step either way.
-            if _stop_requested(stop_file):
-                print(f"run_ensemble_sweeps: stop file {stop_file} present "
-                      f"mid-step — returning last completed step "
-                      f"{int(states.step.max())}", flush=True)
-                return states
-            active = ~c.done & (c.j < n_mh) & ~frozen
-            if not first and not bool(active.any().item()):
-                break
-            c = mut_sweep(c, g.gamma, data, active)
-            first = False
-        states = finish(states, key, g, c)
+                  f"returning at max step {int(s.step.max())}", flush=True)
+            break
+        try:
+            s, running = run_step(pcs, s, data, stop_file)
+        except StopRequested:
+            print(f"run_ensemble_sweeps: stop file {stop_file} present "
+                  f"mid-step — returning last completed step "
+                  f"{int(s.step.max())}", flush=True)
+            break
         if verbose:
-            ng = states.gamma.cpu()
-            print(f"ensemble step: {int(states.step.max())}  "
+            ng = s.gamma.cpu()
+            print(f"ensemble step: {int(s.step.max())}  "
                   f"gamma<1: {int((ng < 1.0).sum())}/{n_datasets}  "
                   f"min gamma: {float(ng.min()):.6f}", flush=True)
         if callback is not None:
-            callback(states)
-    return states
+            callback(graphs.clone(s))
+    return graphs.clone(s)
 
 
 def run_ensemble_sweeps(key, prior: Prior, loglik_fn: DataLogLik, data,
@@ -211,32 +237,38 @@ def run_ensemble_sweeps(key, prior: Prior, loglik_fn: DataLogLik, data,
                         states: Optional[SMCState] = None,
                         stop_file=None) -> SMCState:
     """Host-observed ensemble run. ``callback(states)`` fires after every
-    ensemble step (the checkpointing hook of long SBC runs); pass ``states``
-    to resume. ``stop_file``: as in ``run_smc``, polled before every step
-    and every sweep; when the file appears the run returns the last
-    completed ensemble step instead of tempering every population to
-    gamma = 1. ``verbose`` prints one line per ensemble step."""
+    ensemble step with a copy of the state (the checkpointing hook of long
+    SBC runs); pass ``states`` to resume. ``stop_file``: as in ``run_smc``,
+    polled before every step and every later sweep; when the file appears the
+    run returns the last completed ensemble step instead of tempering
+    every population to gamma = 1. ``verbose`` prints one line per
+    ensemble step. On CUDA the step's pieces are graphs captured for this
+    call; the initial draw and sweep (``states`` None) run eagerly."""
     fns = make_ensemble_sweep_fns(prior, loglik_fn, n_datasets, cfg)
     if states is None:
         states = fns[0](key, data)
-    return _run(states, data, fns, cfg, n_datasets, verbose=verbose,
-                callback=callback, stop_file=stop_file)
+    programs = graphs.Programs(_step_pieces(fns, cfg)._replace(init=None))
+    return _run(programs, states, None, data, cfg, n_datasets,
+                verbose=verbose, callback=callback, stop_file=stop_file)
 
 
 def make_ensemble_run(prior: Prior, loglik_fn: DataLogLik, n_datasets: int,
                       cfg: SMCConfig, mesh=None):
     """``fn(key, data) -> SMCState``: all D populations from the prior draw
     to gamma = 1 (or ``max_steps``) in one call, without printing or
-    polling. Build once, call with fresh keys and data. ``mesh`` other than
-    None is not ported."""
+    polling. Build once, call with fresh keys and data: on CUDA the prior
+    draw with the initial sweep and each piece of a step are graphs,
+    captured at the first call per shape. The returned state is a copy.
+    ``mesh`` other than None is not ported."""
     if mesh is not None:
         raise NotImplementedError(
             "mesh is not ported yet (ROADMAP Queue 1 item 12: multi-GPU); "
             "the ensemble runs on one device")
-    fns = make_ensemble_sweep_fns(prior, loglik_fn, n_datasets, cfg)
+    programs = graphs.Programs(_step_pieces(
+        make_ensemble_sweep_fns(prior, loglik_fn, n_datasets, cfg), cfg))
 
     def run(key, data) -> SMCState:
-        return _run(fns[0](key, data), data, fns, cfg, n_datasets)
+        return _run(programs, None, key, data, cfg, n_datasets)
 
     return run
 

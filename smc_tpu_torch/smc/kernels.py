@@ -2,7 +2,9 @@
 (PyTorch port of the main-path parts of ``smc_tpu.smc.kernels``).
 
 Every function takes and returns tensors on the run's device and never waits
-for it, except the mutation loop, which reads one flag per sweep. On CUDA the
+for it, except the mutation loop, which reads one flag per sweep after the
+first. Nothing here copies from the host to the device, so every piece can
+be captured in a CUDA graph (smc/graphs.py). On CUDA the
 gamma ladder runs on ``csrc/ladder.cu``, the ancestor build on
 ``csrc/merge.cu``, and the likelihood wherever the model puts it.
 
@@ -24,6 +26,7 @@ from smc_tpu_torch.config import SMCConfig
 from smc_tpu_torch.ops.ladder_cuda import ladder_stats
 from smc_tpu_torch.ops.resample_cuda import sorted_offsets_to_ancestors
 from smc_tpu_torch.priors import Prior
+from smc_tpu_torch.smc import graphs
 
 
 def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -221,9 +224,9 @@ def _cholesky_or_nan(cov: torch.Tensor) -> torch.Tensor:
 
 class MutationCarry(NamedTuple):
     """Cross-sweep state of the adaptive mutation loop. Shapes for one
-    population; an ensemble adds a leading D to every tensor, and its ``j``
-    is an int32 (D,) tensor (populations stop after different sweeps)."""
-    j: object               # sweeps executed so far (host int: no sync)
+    population; an ensemble adds a leading D to every tensor (populations
+    stop after different sweeps)."""
+    j: torch.Tensor         # () int32 sweeps executed so far
     key: object             # the run's Draws
     particles: torch.Tensor  # (N, d)
     log_lik: torch.Tensor   # (N,)
@@ -261,7 +264,7 @@ def make_mutation_parts(kind: str, loglik_fn, prior: Prior, cfg: SMCConfig):
         def per_pop(v, dtype):
             return torch.full(pops, v, dtype=dtype, device=dev)
         return MutationCarry(
-            j=per_pop(0, torch.int32) if pops else 0, key=key,
+            j=per_pop(0, torch.int32), key=key,
             particles=particles, log_lik=log_lik,
             log_prior=prior.log_pdf(particles),
             grad=torch.zeros((), dtype=particles.dtype, device=dev),
@@ -342,34 +345,72 @@ def make_mutation_sweeper(kind: str, loglik_fn, prior: Prior,
     return init_fn, sweep_fn
 
 
-def _run_sweeps(kind: str, key, particles, log_lik, gamma, loglik_fn,
-                prior: Prior, cfg: SMCConfig) -> MutationResult:
-    """The adaptive sweep loop: up to ``mh_steps`` sweeps (``mh_steps_final``
-    at gamma == 1), stopping early once the accepted-at-least-once fraction
-    passes the threshold. The host reads one flag per sweep after the
-    first; the sweep count limit is chosen on the device."""
+def sweep_limit(gamma: torch.Tensor, cfg: SMCConfig) -> torch.Tensor:
+    """A step's sweep limit, chosen on the device: ``mh_steps``, or
+    ``mh_steps_final`` where gamma == 1."""
+    return torch.where(gamma >= 1.0, cfg.mh_steps_final, cfg.mh_steps)
+
+
+def make_sweep_loop_pieces(kind: str, loglik_fn, prior: Prior,
+                           cfg: SMCConfig):
+    """``(mut_init, mut_sweep)``: one population's adaptive loop cut where
+    the host reads.
+
+    - ``mut_init(key, particles, log_lik, gamma, n_mh) -> (carry, more)``:
+      the carry and the first sweep, which needs no read;
+    - ``mut_sweep(carry, gamma, n_mh) -> (carry, more)``: one more sweep.
+
+    ``more`` is the device flag "another sweep is due": fewer than
+    ``n_mh`` sweeps so far and no early stop."""
     init_fn, sweep_fn = make_mutation_sweeper(kind, loglik_fn, prior, cfg)
-    n_mh = torch.where(gamma >= 1.0, cfg.mh_steps_final, cfg.mh_steps)
-    c = sweep_fn(init_fn(key, particles, log_lik), gamma)
-    while bool(((c.j < n_mh) & ~c.done).item()):
+
+    def mut_sweep(c, gamma, n_mh):
         c = sweep_fn(c, gamma)
-    n_steps = torch.tensor(c.j, dtype=torch.int32, device=particles.device)
-    return MutationResult(c.particles, c.log_lik, n_steps,
-                          torch.sum(c.r_ac), c.mh_ratio)
+        return c, (c.j < n_mh) & ~c.done
+
+    def mut_init(key, particles, log_lik, gamma, n_mh):
+        return mut_sweep(init_fn(key, particles, log_lik), gamma, n_mh)
+
+    return mut_init, mut_sweep
+
+
+def sweep_until_done(c, more, mut_sweep, poll=None):
+    """The host side of the adaptive loop: while the flag the last sweep
+    wrote says another sweep is due, ``poll()`` (when given; it may raise)
+    and ``c, more = mut_sweep(c)``. One host read per sweep after the
+    first."""
+    while graphs.read(more):
+        if poll is not None:
+            poll()
+        c, more = mut_sweep(c)
+    return c
+
+
+def mutation_result(c: MutationCarry) -> MutationResult:
+    """The loop's result from its last carry (per population for an
+    ensemble's)."""
+    return MutationResult(c.particles, c.log_lik, c.j,
+                          torch.sum(c.r_ac, dim=-1), c.mh_ratio)
 
 
 def mh_mutation(key, particles: torch.Tensor, log_lik: torch.Tensor,
                 gamma: torch.Tensor,
                 loglik_fn: Callable[[torch.Tensor], tuple],
                 prior: Prior, cfg: SMCConfig) -> MutationResult:
-    """Adaptive random-walk Metropolis sweeps. Per sweep: the proposal
-    covariance is the weighted empirical particle covariance, recomputed
-    every sweep; proposal = particles + N(0, cov) * mh_ratio; out-of-support
-    proposals are replaced by the current particle; accept iff
-    (lk2 - lk1) * gamma + (lp2 - lp1) >= log U. ``key`` is the run's
+    """Adaptive random-walk Metropolis sweeps: up to ``mh_steps`` sweeps
+    (``mh_steps_final`` at gamma == 1), stopping early once the
+    accepted-at-least-once fraction passes the threshold. Per sweep: the
+    proposal covariance is the weighted empirical particle covariance,
+    recomputed every sweep; proposal = particles + N(0, cov) * mh_ratio;
+    out-of-support proposals are replaced by the current particle; accept
+    iff (lk2 - lk1) * gamma + (lp2 - lp1) >= log U. ``key`` is the run's
     ``Draws``."""
-    return _run_sweeps("rwm", key, particles, log_lik, gamma, loglik_fn,
-                       prior, cfg)
+    n_mh = sweep_limit(gamma, cfg)
+    mut_init, mut_sweep = make_sweep_loop_pieces("rwm", loglik_fn, prior,
+                                                 cfg)
+    c = sweep_until_done(*mut_init(key, particles, log_lik, gamma, n_mh),
+                         lambda c: mut_sweep(c, gamma, n_mh))
+    return mutation_result(c)
 
 
 def mutate(key, particles: torch.Tensor, log_lik: torch.Tensor,

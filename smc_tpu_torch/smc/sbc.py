@@ -50,7 +50,8 @@ def sbc_ranks(key, prior: Prior, simulate_fn: SimulateFn, loglik_fn,
     ``granularity``: "fused" runs the ensemble through
     ``make_ensemble_run``; "sweep" through ``run_ensemble_sweeps`` (with
     ``verbose``, one line per ensemble step). Both give the same ranks from
-    the same seed.
+    the same seed. On CUDA both replay captured CUDA graphs of the
+    ensemble step, captured anew for each call.
     """
     if n_rank_draws >= cfg.n_particles:
         raise ValueError("n_rank_draws must be < n_particles (thinning)")

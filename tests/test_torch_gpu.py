@@ -3,8 +3,11 @@ plain PyTorch version on the card, the wrappers' input checks, a short run
 of the Michaelis-Menten main path through its three kernels, the
 block-Thomas kernels at lane counts around their 32-lane tiles and at the
 march's width, a methanation likelihood through them, the RK4 likelihood
-kernel, the ladder and merge kernels under the ensemble's population axis,
-and an ensemble on the card against the same ensemble on the CPU.
+kernel with and without its population axis, the ladder and merge kernels
+under the ensemble's population axis, an ensemble on the card against the
+same ensemble on the CPU, and the graphed runs (captured CUDA graphs of the
+step's pieces) against the eager composition of the same pieces, bit for
+bit, with their launch accounting.
 
 Every test here needs an NVIDIA GPU with nvcc and skips without one (the
 ``cuda`` fixture decides, inside the test). This file imports neither JAX
@@ -468,6 +471,39 @@ class _CpuDrawsOn:
         return torch.randn(shape, generator=self.gen).to(self.device)
 
 
+def _eager_run(model, cfg, key):
+    """The eager composition of a run: init_state, then smc_step until
+    gamma = 1."""
+    from smc_tpu_torch import init_state, smc_step
+    s = init_state(key, model, cfg)
+    while bool(((s.step < cfg.max_steps) & (s.gamma < 1.0)).item()):
+        s = smc_step(s, model.log_likelihood, model.prior, cfg)
+    return s
+
+
+def _eager_ensemble(prior, loglik, d, cfg, key, data):
+    """The eager composition of an ensemble run from the un-captured pieces
+    of make_ensemble_sweep_fns (the loop the graphed entry points run)."""
+    from smc_tpu_torch.smc.ensemble import make_ensemble_sweep_fns
+    einit, prep, mut_init, mut_sweep, finish = make_ensemble_sweep_fns(
+        prior, loglik, d, cfg)
+    s = einit(key, data)
+    while bool(torch.any((s.gamma < 1.0) & (s.step < cfg.max_steps))):
+        key_, k_mh, g, parts, lk = prep(s)
+        n_mh = torch.where(g.gamma >= 1.0, cfg.mh_steps_final, cfg.mh_steps)
+        frozen = s.gamma >= 1.0
+        c = mut_init(k_mh, parts, lk, data)
+        first = True
+        while True:
+            active = ~c.done & (c.j < n_mh) & ~frozen
+            if not first and not bool(active.any()):
+                break
+            c = mut_sweep(c, g.gamma, data, active)
+            first = False
+        s = finish(s, key_, g, c)
+    return s
+
+
 def test_ensemble_on_the_card_matches_the_cpu_with_the_same_draws(cuda):
     """D = 4 populations x N = 2048 through the kernels against the same
     ensemble on the CPU (plain versions): steps per population within one,
@@ -488,8 +524,10 @@ def test_ensemble_on_the_card_matches_the_cpu_with_the_same_draws(cuda):
                                  torch.tensor(s0, device=dev),
                                  method="pallas_exact")
         _build.reset_launch_counts()
-        out[dev.type] = make_ensemble_run(prior, ll, d, cfg)(
-            _CpuDrawsOn(7, dev), obs.to(dev))
+        # The card side through the eager pieces: graphed runs draw from a
+        # torch.Generator, not from CPU draws moved over.
+        out[dev.type] = _eager_ensemble(prior, ll, d, cfg,
+                                        _CpuDrawsOn(7, dev), obs.to(dev))
         if dev.type == "cuda":
             counts = dict(_build.launch_counts)
     g, c = out["cuda"], out["cpu"]
@@ -502,3 +540,137 @@ def test_ensemble_on_the_card_matches_the_cpu_with_the_same_draws(cuda):
     pg, pc = g.particles.cpu(), c.particles
     assert bool(((pg.mean(1) - pc.mean(1)).abs() < 0.25 * pc.std(1)).all())
     assert bool(((g.log_evidence.cpu() - c.log_evidence).abs() < 0.5).all())
+
+
+_STATE_FIELDS = ("particles", "log_lik", "gamma", "step", "ess",
+                 "max_log_lik", "n_mh", "accepted", "n_gamma_reductions",
+                 "mh_ratio", "total_lik_evals", "log_evidence")
+
+
+def _graph_case(case, cuda):
+    """(graphed run, eager run) of one path, each a function of a seed."""
+    if case == "mm":
+        m = MichaelisMentenModel.default(method="pallas_exact", device=cuda)
+        cfg = SMCConfig(n_particles=4096)
+        return (make_full_run_on_device(m, cfg),
+                lambda seed: _eager_run(m, cfg, seed))
+    if case == "methanation":
+        from smc_tpu_torch.models.methanation import MethanationModel
+        m = MethanationModel.default(
+            n_conditions=3, nx=11, n_steps=12, growth=1.6, jac_stride=3,
+            dense_tail=3, device=cuda)
+        cfg = SMCConfig(n_particles=64, mh_steps=2, mh_steps_final=4)
+        return (make_full_run_on_device(m, cfg),
+                lambda seed: _eager_run(m, cfg, seed))
+    from smc_tpu_torch import Prior, make_ensemble_run
+    from smc_tpu_torch.models.michaelis_menten import (
+        generate_mm_pseudo_data, make_mm_data_loglik)
+    ts, obs0, s0 = generate_mm_pseudo_data()
+    d, cfg = 3, SMCConfig(n_particles=1024)
+    gen = torch.Generator().manual_seed(5)
+    obs = (torch.tensor(obs0)[None] + 0.02 * torch.randn(
+        (d,) + obs0.shape, generator=gen)).to(cuda)
+    prior = Prior.uniform([0.0] * 3, [10.0] * 3, device=cuda)
+    ll = make_mm_data_loglik(torch.tensor(ts, device=cuda),
+                             torch.tensor(s0, device=cuda),
+                             method="pallas" if case == "ensemble_pallas"
+                             else "pallas_exact")
+    run = make_ensemble_run(prior, ll, d, cfg)
+    return (lambda seed: run(seed, obs),
+            lambda seed: _eager_ensemble(prior, ll, d, cfg, seed, obs))
+
+
+@pytest.mark.parametrize("case", ["mm", "ensemble", "ensemble_pallas",
+                                  "methanation"])
+def test_graphed_run_is_bit_equal_to_the_eager_composition(cuda, case):
+    """The graphed entry point (each piece of a step one CUDA graph replay)
+    and the eager composition of the same pieces give the same final state,
+    bit for bit, with the same kernel launches; the first call captures,
+    the second replays."""
+    graphed, eager = _graph_case(case, cuda)
+    for seed in (1, 2):
+        _build.reset_launch_counts()
+        g = graphed(seed)
+        g_counts = dict(_build.launch_counts)
+        _build.reset_launch_counts()
+        e = eager(seed)
+        assert dict(_build.launch_counts) == g_counts
+        for f in _STATE_FIELDS:
+            assert torch.equal(getattr(g, f), getattr(e, f)), (seed, f)
+    assert bool((g.gamma == 1.0).all())
+
+
+def test_second_graphed_run_leaves_the_first_state(cuda):
+    graphed, _ = _graph_case("mm", cuda)
+    first = graphed(3)
+    kept = {f: getattr(first, f).clone() for f in _STATE_FIELDS}
+    second = graphed(4)
+    assert not torch.equal(second.particles, first.particles)
+    for f in _STATE_FIELDS:
+        assert torch.equal(getattr(first, f), kept[f]), f
+
+
+def test_graphed_run_refuses_draws_it_cannot_replay(cuda):
+    graphed, _ = _graph_case("mm", cuda)
+    with pytest.raises(TypeError, match="TorchDraws"):
+        graphed(_CpuDrawsOn(0, cuda))
+
+
+def test_launch_accounting_under_replay(cuda):
+    """launch_counts counts kernel executions: a graphed run counts what the
+    eager run launches, the capture and its warm-up count nothing, and
+    every replay of a piece adds the launches recorded at its capture."""
+    from smc_tpu_torch.smc.driver import _Stepper
+    m = MichaelisMentenModel.default(method="pallas_exact", device=cuda)
+    cfg = SMCConfig(n_particles=4096)
+    stepper = _Stepper(m, cfg, init=True)
+    _build.reset_launch_counts()
+    s = stepper.run(None, 5)
+    counts = dict(_build.launch_counts)
+    prog = next(iter(stepper.programs.by_shape.values()))
+    sweeps = int(round(float(s.total_lik_evals) / 4096)) - 1
+    steps = int(s.step)
+    assert counts["mm_exact"] == sweeps + 1
+    assert counts["ladder"] == counts["merge"] == steps
+    assert prog.graphs["init"][1]["mm_exact"] == 1
+    assert prog.graphs["prep"][1]["ladder"] == 1
+    assert prog.graphs["mut_sweep"][1]["mm_exact"] == 1
+    # init + per step: prep, mut_init, finish, and one mut_sweep per later
+    # sweep
+    assert prog.replays == 1 + 3 * steps + (sweeps - steps)
+    _build.reset_launch_counts()
+    stepper.run(None, 5)
+    assert dict(_build.launch_counts) == counts
+
+
+@pytest.mark.parametrize("d", [1, 3, 64])
+def test_batched_mm_rk4_kernel(cuda, d):
+    """Kernel 5 with a population axis (grid.y): each row has the bits of
+    the per-population launch (B = 1: the unbatched entry), the same -inf
+    rows as the batched plain version and rtol 5e-5 of the larger ll term
+    where Km >= 0.3; a ragged N."""
+    m = MichaelisMentenModel.default(method="pallas", device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(d)
+    n = 2053
+    theta = torch.rand((d, n, 3), generator=g, device=cuda) * 10.0
+    theta[:, ::97, 2] *= -1.0
+    theta[:, 2::89, 1] = 0.0
+    theta[:, 3::113, 0] = math.nan
+    obs = (m.obs[None] + 0.02 * torch.randn((d,) + m.obs.shape, generator=g,
+                                            device=cuda)).contiguous()
+    s0 = m.s0[None].repeat(d, 1).contiguous()
+    got = mm.mm_loglik_pallas_batched(theta, obs, s0, m.dt, 4)
+    for p in range(d):
+        one = mm.mm_loglik_pallas(theta[p].contiguous(), obs[p].contiguous(),
+                                  s0[p].contiguous(), m.dt, 4)
+        assert torch.equal(got[p], one)
+    want = mm.mm_loglik_rk4_plain(theta, obs, s0, m.dt, 4)
+    assert not bool(torch.isnan(got).any())
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    fin = torch.isfinite(want) & (theta[..., 1] >= 0.3)
+    sigma = theta[..., 2].clamp_min(1e-12)[fin]
+    t1 = -120.0 * (math.log(2 * math.pi) + 2 * torch.log(sigma))
+    scale = torch.maximum(t1.abs(), (t1 - want[fin]).abs())
+    assert bool(((got[fin] - want[fin]).abs() <= 5e-5 * scale).all())
+    assert torch.equal(mm.mm_loglik_pallas_batched(theta, obs, s0, m.dt, 4),
+                       got)

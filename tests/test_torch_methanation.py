@@ -260,3 +260,21 @@ def test_what_is_not_ported_raises():
                TM.Conditions.from_csv, TM.Conditions.from_reference_csv):
         with pytest.raises(NotImplementedError):
             fn("conditions.csv")
+
+
+def test_likelihood_call_path_copies_nothing_to_the_device():
+    """What lets the likelihood run inside a captured CUDA graph: its
+    constants (grid flags, base-parameter row, subset index) are made once
+    per device and reused, and the march refuses a step schedule that lives
+    on a device (reading it would wait for the device on every call)."""
+    from smc_tpu_torch.ops.dae_fast import bdf_march_bl
+    dev = torch.device("cpu")
+    assert TM._grid_flags(11, dev) is TM._grid_flags(11, dev)
+    base = TM._row(TM.KIN_TRUE, dev, torch.float32)
+    assert base is TM._row(TM.KIN_TRUE, dev, torch.float32)
+    assert TM._row((0, 8), dev) is TM._row((0, 8), dev)
+    assert TM._row((0, 8), dev).dtype == torch.int64
+    with pytest.raises(ValueError, match="host array"):
+        bdf_march_bl(None, torch.zeros((7, 3, 2)),
+                     torch.ones(4, device="meta"),
+                     analytic_jac=lambda *a: {})

@@ -235,3 +235,81 @@ def test_flushing_subnormal_state_keeps_the_likelihood_bits(data):
     stable = th[:, 1] >= RK4_STABLE_KM
     assert int((under & stable).sum()) > 100
     assert torch.equal(got[stable], want[stable])
+
+
+# --------------------------------------------------------------------------
+# The population axis: kernel 5 under vmap (the ensemble's and SBC's
+# method="pallas")
+# --------------------------------------------------------------------------
+D_POP, N_POP = 3, 256
+
+
+def _population_inputs(data):
+    """D_POP populations of N_POP stable draws, each with the pseudo-data
+    plus its own 0.02 NumPy noise, and the shared s0 per population."""
+    ts, obs, s0, dt = data
+    rng = np.random.default_rng(21)
+    theta = np.stack([_stable_theta(N_POP, 30 + p) for p in range(D_POP)])
+    pobs = (obs[None] + 0.02 * rng.standard_normal((D_POP,) + obs.shape)
+            ).astype(np.float32)
+    ps0 = np.broadcast_to(s0, (D_POP,) + s0.shape).copy()
+    return theta, pobs, ps0, dt
+
+
+@pytest.fixture(scope="module")
+def vmapped_jax(data):
+    """jax.vmap of mm_loglik_pallas in interpret mode over the populations
+    (theta and obs mapped, s0 shared), compiled once for this file."""
+    import jax
+    theta, pobs, ps0, dt = _population_inputs(data)
+    fn = jax.jit(jax.vmap(
+        lambda th, ob: j_mm_loglik_pallas(th, ob, jnp.asarray(ps0[0]), dt,
+                                          block=N_POP, interpret=True)))
+    return np.asarray(fn(jnp.asarray(theta), jnp.asarray(pobs)))
+
+
+def test_batched_plain_rk4_matches_vmapped_pallas_interpret(data,
+                                                             vmapped_jax):
+    """The batched plain version of csrc/mm_rk4.cu (the kernel's grid.y =
+    population) against the JAX package's kernel under vmap, in interpret
+    mode: every population within the pinned RTOL of row 5's test."""
+    theta, pobs, ps0, dt = _population_inputs(data)
+    got = mm_cuda.mm_loglik_rk4_plain(
+        torch.from_numpy(theta), torch.from_numpy(pobs),
+        torch.from_numpy(ps0), dt).numpy()
+    assert got.shape == (D_POP, N_POP) and got.dtype == np.float32
+    for p in range(D_POP):
+        assert_ll_close(got[p], vmapped_jax[p], theta[p], 6, 40, RTOL)
+
+
+def test_batched_plain_rk4_with_one_population_is_the_unbatched(data):
+    """B = 1 of the batched plain version has the unbatched entry's bits,
+    and so has every row of a batch (the CPU side of the card's check that
+    row p of a launch is the per-population launch)."""
+    theta, pobs, ps0, dt = _population_inputs(data)
+    th, ob, s = (torch.from_numpy(a) for a in (theta, pobs, ps0))
+    batched = mm_cuda.mm_loglik_pallas_batched(th, ob, s, dt)
+    for p in range(D_POP):
+        one = mm_cuda.mm_loglik_pallas_batched(th[p:p + 1], ob[p:p + 1],
+                                               s[p:p + 1], dt)
+        assert one.shape == (1, N_POP)
+        assert torch.equal(one[0], mm_loglik_pallas(th[p], ob[p], s[p], dt))
+        assert torch.equal(batched[p], one[0])
+
+
+def test_data_loglik_pallas_is_the_per_population_likelihood(data):
+    """make_mm_data_loglik(method="pallas"), the ensemble's likelihood (one
+    kernel launch for all D on the card), gives each population's own
+    mm_loglik_pallas against its own observations, bit for bit."""
+    from smc_tpu_torch.models.michaelis_menten import make_mm_data_loglik
+    ts, _, s0, dt = data
+    theta, pobs, _, _ = _population_inputs(data)
+    fn = make_mm_data_loglik(torch.from_numpy(ts), torch.from_numpy(s0),
+                             method="pallas", substeps=2)
+    got, pred = fn(torch.from_numpy(theta), torch.from_numpy(pobs))
+    assert pred is None and got.shape == (D_POP, N_POP)
+    for p in range(D_POP):
+        want = mm_loglik_pallas(torch.from_numpy(theta[p]),
+                                torch.from_numpy(pobs[p]),
+                                torch.from_numpy(s0), dt, 2)
+        assert torch.equal(got[p], want)

@@ -212,7 +212,7 @@ def test_unported_options_raise(models):
         mutate(None, x, tm.log_likelihood(x)[0], torch.tensor(0.5),
                tm.log_likelihood, tm.prior, cfg)
     with pytest.raises(NotImplementedError):
-        run_smc(tm, SMCConfig(n_particles=16), 0, granularity="sweep")
+        run_smc(tm, SMCConfig(n_particles=16), 0, granularity="block")
 
 
 def test_log_evidence_and_posterior_match_analytic_conjugate():
