@@ -36,6 +36,7 @@ from smc_tpu_torch.smc.ensemble import (init_ensemble,  # noqa: E402
                                         run_ensemble_sweeps, take_datasets)
 from smc_tpu_torch.smc.kernels import (find_gamma,  # noqa: E402
                                        make_mutation_sweeper, mh_mutation,
-                                       mutate, residual_systematic_apply)
+                                       mutate, residual_systematic_apply,
+                                       residual_systematic_resample)
 
 __version__ = "0.1.0"

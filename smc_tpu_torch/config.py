@@ -46,8 +46,8 @@ class SMCConfig:
     accept_threshold_min: float = 0.1
     mh_ratio_decay: float = 0.5
     max_steps: int = 50
-    # Only "residual_systematic" runs in this package so far; the other
-    # schemes are accepted for parity of the configuration surface.
+    # "ring" (the JAX package's sharded redistribution) is
+    # residual-systematic on one device.
     resampling: str = "residual_systematic"
     # Only "rwm" runs in this package so far; "mala"/"hmc" raise in mutate.
     mutation: str = "rwm"

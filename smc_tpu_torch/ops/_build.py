@@ -41,12 +41,16 @@ _SIGNATURES = {
     "mm_exact_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _F, _P),
     # theta, obs, s0, ll, b, n, n_ds, n_obs, substeps, h, h/2, h/6, stream
     "mm_rk4_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _P),
-    # d_ll, dg, partial, s1, s2, b, n, k, stream
-    "ladder_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
-    # n -> the ladder grid's particle-tile extent (no launch)
+    # d_ll, dg, partial, tickets, s1, s2, b, n, k, stream
+    "ladder_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # n -> the ladder grid's particle-block extent; k -> its
+    # candidate-group extent (no launch)
     "ladder_blocks": (_I,),
+    "ladder_groups": (_I,),
     # offsets, ancestors, b, n, stream
     "merge_launch": (_P, _P, _I, _I, _P),
+    # n -> the merge grid's extent along the merged sequence (no launch)
+    "merge_blocks": (_I,),
     # A, B, C, LU, Ms, nx, nb, cs, stream
     "thomas_factor_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     # LU, Ms, C, rhs, x, nx, nb, stream (factor column stride 8, then 7)

@@ -5,12 +5,16 @@ Port of ``smc_tpu/ops/resample_pallas.py`` (``sorted_offsets_to_ancestors``):
 
     a[j] = max{ i : offsets[i] <= j },   j = 0..N-1
 
-for the sorted int32 offsets of residual-systematic resampling (all copies
-of particle i occupy output slots [offsets[i], offsets[i+1])). Bitwise
+for the sorted int32 offsets of a resampling (all copies of particle i
+occupy output slots [offsets[i], offsets[i+1])). Bitwise
 equal to the scatter construction ``cumsum(hist(offsets)) - 1``, ties of
-zero-count particles included. The kernel is ``csrc/merge.cu``; the JAX
-package launches its kernel only for N >= 4096 on a TPU, this one at every
-N on CUDA. An ensemble's D offset ladders (D, N) go through one launch.
+zero-count particles included. The kernel is ``csrc/merge.cu`` (a merge
+path: each block resolves an equal piece of the offsets merged with the
+slots); the JAX package launches its kernel only for N >= 4096 on a TPU,
+this one at every N on CUDA. An ensemble's D offset ladders (D, N) go
+through one launch. Every resampling scheme reaches it: residual-systematic
+through its offsets, the others through ``counts_to_ancestors``
+(smc/kernels.py).
 """
 from __future__ import annotations
 

@@ -4,14 +4,17 @@ The JAX package threads a threefry key through the run. Here every draw of
 the driver goes through a ``Draws`` object instead, in a fixed order:
 
 - the prior draw: ``uniform((n, d))`` then ``normal((n, d))``;
-- per resampling: ``uniform(())`` (the systematic offset v0);
+- per resampling: ``uniform(())`` (the systematic offset v0; with
+  ``resampling="stratified"`` or ``"multinomial"``, ``uniform((n,))``, one
+  per output slot);
 - per mutation sweep: ``normal((n, d))`` then ``uniform((n,))``.
 
 An ensemble of D populations (smc/ensemble.py) draws from ONE ``Draws`` for
 all of them, each request with a leading D:
 
 - the prior draw: ``uniform((D, n, d))`` then ``normal((D, n, d))``;
-- per ensemble step: ``uniform((D,))`` (every population's v0);
+- per ensemble step: ``uniform((D,))`` (every population's v0; for
+  stratified or multinomial resampling ``uniform((D, n))``);
 - per ensemble sweep: ``normal((D, n, d))`` then ``uniform((D, n))``.
 
 Population p reads row p of each. A population that has finished, or whose

@@ -34,9 +34,9 @@ from smc_tpu_torch.priors import Prior
 from smc_tpu_torch.rng import as_draws
 from smc_tpu_torch.smc import graphs
 from smc_tpu_torch.smc.kernels import (find_gamma, make_sweep_loop_pieces,
-                                       mutation_result,
-                                       residual_systematic_apply,
-                                       sweep_limit, sweep_until_done)
+                                       mutation_result, resample_apply,
+                                       resample_uniforms, sweep_limit,
+                                       sweep_until_done)
 from smc_tpu_torch.smc.state import SMCState
 
 logger = logging.getLogger("smc_tpu_torch")
@@ -77,15 +77,18 @@ def init_state(key, model, cfg: SMCConfig,
 
 
 def _resample(g, state: SMCState, cfg: SMCConfig):
-    """Residual-systematic selection of (particles, log_lik); the offset v0
-    is the step's first draw (one per population for an ensemble state)."""
-    if cfg.resampling not in ("residual_systematic", "ring"):
-        raise NotImplementedError(
-            f"resampling {cfg.resampling!r} is not ported yet; "
-            "'residual_systematic' runs")
-    v0 = state.key.uniform(tuple(state.gamma.shape), torch.float32)
-    return residual_systematic_apply(v0, g.weights, state.particles,
-                                     state.log_lik)
+    """Weight-proportional selection of (particles, log_lik) by
+    ``cfg.resampling``: the step's first draws are the scheme's uniforms
+    (smc/kernels.py::resample_uniforms; for an ensemble state, per
+    population). Every scheme goes through the merge kernel and one bundle
+    gather. ``"ring"`` is the sharded redistribution of residual-systematic
+    and is residual-systematic on one device, as in the JAX package."""
+    scheme = ("residual_systematic" if cfg.resampling == "ring"
+              else cfg.resampling)
+    u = resample_uniforms(state.key, scheme, tuple(state.gamma.shape),
+                          state.log_lik.shape[-1])
+    return resample_apply(u, g.weights, state.particles, state.log_lik,
+                          scheme)
 
 
 def _advance(state: SMCState, g, m, cfg: SMCConfig) -> SMCState:

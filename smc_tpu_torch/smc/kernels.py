@@ -156,16 +156,13 @@ def residual_systematic_ancestors(v0: torch.Tensor,
     return sorted_offsets_to_ancestors(_rs_counts_offsets(v0, weights)[1])
 
 
-def residual_systematic_apply(v0: torch.Tensor, weights: torch.Tensor,
-                              particles: torch.Tensor,
-                              log_lik: torch.Tensor):
-    """Resample (particles (N, d), log_lik (N,)) by residual-systematic
-    ancestors: one ancestor build (csrc/merge.cu on CUDA) and one row
-    gather of the (N, d + 1) bundle, bitwise equal to indexing each array
-    with the ancestors. An ensemble ((D, N, d), (D, N), v0 (D,)) takes one
-    build and one gather too: population p's ancestors index the flattened
-    (D N, d + 1) bundle at ``anc + p N``."""
-    anc = residual_systematic_ancestors(v0, weights).long()
+def _gather_bundle(anc: torch.Tensor, particles: torch.Tensor,
+                   log_lik: torch.Tensor):
+    """(particles, log_lik) indexed by the ancestors ``anc`` (N,) or (D, N):
+    one row gather of the (N, d + 1) bundle, bitwise equal to indexing each
+    array. An ensemble's population p indexes the flattened (D N, d + 1)
+    bundle at ``anc + p N``."""
+    anc = anc.long()
     bundle = torch.cat([particles, log_lik[..., None]], dim=-1)
     if anc.dim() == 2:
         n_pop, n = anc.shape
@@ -177,12 +174,152 @@ def residual_systematic_apply(v0: torch.Tensor, weights: torch.Tensor,
     return out[..., :-1], out[..., -1]
 
 
+def residual_systematic_apply(v0: torch.Tensor, weights: torch.Tensor,
+                              particles: torch.Tensor,
+                              log_lik: torch.Tensor):
+    """Resample (particles (N, d), log_lik (N,)) by residual-systematic
+    ancestors: one ancestor build (csrc/merge.cu on CUDA) and one row
+    gather of the (N, d + 1) bundle, bitwise equal to indexing each array
+    with the ancestors. An ensemble ((D, N, d), (D, N), v0 (D,)) takes one
+    build and one gather too."""
+    return _gather_bundle(residual_systematic_ancestors(v0, weights),
+                          particles, log_lik)
+
+
 def counts_to_ancestors(counts: torch.Tensor) -> torch.Tensor:
-    """Offspring counts (N,) -> ancestor index per output slot (N,) int32,
-    slot layout as above."""
+    """Offspring counts (N,) or (D, N) -> ancestor index per output slot,
+    int32, slot layout as above: the exclusive prefix sum of the counts is
+    the offset ladder the merge kernel takes."""
     counts = counts.to(torch.int32)
     offsets = (torch.cumsum(counts, -1) - counts).to(torch.int32)
     return sorted_offsets_to_ancestors(offsets)
+
+
+# --------------------------------------------------------------------------
+# The other resampling schemes (variants; the reference's is
+# residual-systematic)
+# --------------------------------------------------------------------------
+# Each takes its uniforms from the caller, one U[0, 1) draw per population
+# (systematic) or one per output slot (stratified, multinomial), as the JAX
+# package draws them from its key, and gives counts (N,) or (D, N) int32;
+# counts_to_ancestors turns them into ancestors. Nothing reads the device
+# from the host, so each runs inside a captured graph.
+
+
+def _prefix_sums(weights: torch.Tensor) -> torch.Tensor:
+    """The weights' inclusive prefix sums, added in float64 and rounded once
+    to the weights' type. An fp32 scan need not be monotone (the reference's
+    XLA cumsum is not, nor PyTorch's on CUDA), and a dip makes a systematic
+    count negative, so the counts no longer sum to N and the offsets leave
+    [0, N]. Rounding a float64 sum of non-negative weights is monotone on
+    every device. Where the fp32 sums are exact this gives their bits; else
+    a count can differ from the reference's where a grid point or a uniform
+    falls within rounding of a prefix sum."""
+    return torch.cumsum(weights.to(torch.float64), -1).to(weights.dtype)
+
+
+def _count_slots(anc: torch.Tensor, n: int) -> torch.Tensor:
+    """Counts (..., n) int32 of the slot indices ``anc`` (..., n): a
+    scatter-add, which needs no host read (``bincount`` would)."""
+    counts = torch.zeros(anc.shape, dtype=torch.int32, device=anc.device)
+    return counts.scatter_add_(-1, anc, torch.ones_like(counts))
+
+
+def systematic_counts(v0: torch.Tensor, weights: torch.Tensor
+                      ) -> torch.Tensor:
+    """Plain systematic resampling: counts_j = #{k : v0 + k in (N C_{j-1},
+    N C_j]}, from one shared offset ``v0`` per population (0-d or (D,)).
+    The total's shortfall goes to the (first) max-weight particle."""
+    n = weights.shape[-1]
+    csum = _prefix_sums(weights) * n
+    below = torch.clamp_min(torch.floor(csum - v0[..., None]) + 1.0, 0.0)
+    counts = torch.diff(below, dim=-1,
+                        prepend=torch.zeros_like(below[..., :1])
+                        ).to(torch.int32)
+    diff = n - torch.sum(counts, -1, keepdim=True, dtype=torch.int32)
+    fix = torch.argmax(weights, dim=-1, keepdim=True)
+    counts = counts.scatter_add(-1, fix, diff)
+    return torch.clamp_min(counts, 0)
+
+
+def _inverse_cdf_counts(u: torch.Tensor, weights: torch.Tensor
+                        ) -> torch.Tensor:
+    """Counts of the particles whose prefix-sum interval (C_{j-1}, C_j]
+    holds each point of ``u`` (..., N): the first j with C_j >= u
+    (``searchsorted``, left), capped at N - 1."""
+    n = weights.shape[-1]
+    ends = _prefix_sums(weights).contiguous()
+    anc = torch.clamp_max(torch.searchsorted(ends, u.contiguous()), n - 1)
+    return _count_slots(anc, n)
+
+
+def stratified_counts(u: torch.Tensor, weights: torch.Tensor
+                      ) -> torch.Tensor:
+    """Stratified resampling: one uniform ``u`` (..., N) per output slot,
+    placed in its own 1/N stratum, (k + u_k) / N."""
+    n = weights.shape[-1]
+    k = torch.arange(n, dtype=u.dtype, device=u.device)
+    # Divide by a device tensor: PyTorch's CUDA division by a host scalar
+    # multiplies by its reciprocal, which is not IEEE division.
+    points = (k + u) / torch.full((), n, dtype=u.dtype, device=u.device)
+    return _inverse_cdf_counts(points, weights)
+
+
+def multinomial_counts(u: torch.Tensor, weights: torch.Tensor
+                       ) -> torch.Tensor:
+    """Multinomial resampling (iid ancestors) from one uniform ``u``
+    (..., N) per output slot."""
+    return _inverse_cdf_counts(u, weights)
+
+
+_RESAMPLERS = {
+    "residual_systematic": residual_systematic_counts,
+    "systematic": systematic_counts,
+    "stratified": stratified_counts,
+    "multinomial": multinomial_counts,
+}
+
+
+def resample_counts(u: torch.Tensor, weights: torch.Tensor,
+                    scheme: str = "residual_systematic") -> torch.Tensor:
+    """Offspring counts of ``scheme`` from its uniforms ``u``
+    (:func:`resample_uniforms`)."""
+    try:
+        fn = _RESAMPLERS[scheme]
+    except KeyError:
+        raise ValueError(f"unknown resampling scheme {scheme!r}; "
+                         f"one of {sorted(_RESAMPLERS)}") from None
+    return fn(u, weights)
+
+
+def resample_uniforms(draws, scheme: str, pop_shape: tuple,
+                      n: int) -> torch.Tensor:
+    """The uniforms one resampling of ``scheme`` takes from ``draws``: one
+    per population (shape ``pop_shape``) for the systematic schemes, one per
+    output slot (``pop_shape + (n,)``) for stratified and multinomial."""
+    if scheme in ("residual_systematic", "systematic"):
+        return draws.uniform(pop_shape, torch.float32)
+    return draws.uniform(pop_shape + (n,), torch.float32)
+
+
+def residual_systematic_resample(u: torch.Tensor, weights: torch.Tensor,
+                                 scheme: str = "residual_systematic"
+                                 ) -> torch.Tensor:
+    """Ancestor indices (N,) or (D, N) int32 for the chosen resampling
+    scheme (default: the reference's residual-systematic, Algorithm 2),
+    from its uniforms ``u``."""
+    if scheme == "residual_systematic":
+        return residual_systematic_ancestors(u, weights)
+    return counts_to_ancestors(resample_counts(u, weights, scheme))
+
+
+def resample_apply(u: torch.Tensor, weights: torch.Tensor,
+                   particles: torch.Tensor, log_lik: torch.Tensor,
+                   scheme: str = "residual_systematic"):
+    """Resample (particles, log_lik) by ``scheme``'s ancestors: the merge
+    kernel and one bundle gather, whatever the scheme."""
+    return _gather_bundle(residual_systematic_resample(u, weights, scheme),
+                          particles, log_lik)
 
 
 # --------------------------------------------------------------------------

@@ -4,10 +4,12 @@ of the Michaelis-Menten main path through its three kernels, the
 block-Thomas kernels at lane counts around their 32-lane tiles and at the
 march's width, a methanation likelihood through them, the RK4 likelihood
 kernel with and without its population axis, the ladder and merge kernels
-under the ensemble's population axis, an ensemble on the card against the
-same ensemble on the CPU, and the graphed runs (captured CUDA graphs of the
-step's pieces) against the eager composition of the same pieces, bit for
-bit, with their launch accounting.
+under the ensemble's population axis (unaligned rows, K = 1 and 200, the
+merge's zero-count runs where it cuts its pieces) and replayed in one
+captured graph, each resampling scheme's counts and run, an ensemble on
+the card against the same ensemble on the CPU, and the graphed runs
+(captured CUDA graphs of the step's pieces) against the eager composition
+of the same pieces, bit for bit, with their launch accounting.
 
 Every test here needs an NVIDIA GPU with nvcc and skips without one (the
 ``cuda`` fixture decides, inside the test). This file imports neither JAX
@@ -73,12 +75,28 @@ def test_ladder_kernel_matches_plain_and_repeats(cuda):
     assert torch.equal(s1, t1) and torch.equal(s2, t2)
 
 
+_ZERO_RUNS = {"zero_run_inside_a_tile": (1100, 1700),
+              "ties_across_1024": (1019, 1029),
+              "ties_across_2048": (2043, 2053),
+              "ties_across_4096": (4091, 4101),
+              "zero_run_longer_than_any_window": (11, 3011)}
+
+
 @pytest.mark.parametrize("case", ["first", "last", "ones", "alternating",
-                                  "random"])
+                                  "random", *_ZERO_RUNS])
 def test_merge_kernel_is_bitwise_plain(cuda, case):
+    """Bitwise the plain version, on degenerate counts and on zero-count
+    runs where the kernel cuts its pieces: inside a 1024-slot tile, across
+    1024, 2048 and 4096, and longer than a block's 2048 positions of the
+    offsets merged with the slots."""
     n = 50_003
     c = torch.zeros(n, dtype=torch.int64, device=cuda)
-    if case == "first":
+    if case in _ZERO_RUNS:
+        lo, hi = _ZERO_RUNS[case]
+        c[:] = 1
+        c[lo:hi] = 0
+        c[hi] += hi - lo
+    elif case == "first":
         c[0] = n
     elif case == "last":
         c[-1] = n
@@ -110,6 +128,41 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
                                                    dtype=torch.int64))
     with pytest.raises(ValueError):
         ld.ladder_stats(torch.zeros(8, device=cuda), torch.ones(8))
+
+
+@pytest.mark.parametrize("scheme", ["systematic", "stratified",
+                                    "multinomial"])
+def test_each_resampling_scheme_runs_on_the_card(cuda, scheme):
+    """The variant schemes go counts -> merge kernel -> bundle gather inside
+    the graphed pieces: gamma reaches 1, one merge per step."""
+    m = MichaelisMentenModel.default(method="pallas_exact", device=cuda)
+    _build.reset_launch_counts()
+    s = make_full_run_on_device(
+        m, SMCConfig(n_particles=4096, resampling=scheme))(0)
+    assert float(s.gamma) == 1.0
+    assert _build.launch_counts["merge"] == int(s.step)
+    mean = s.particles.mean(0).cpu()
+    assert abs(float(mean[0]) - 1.2) < 0.1 and abs(float(mean[1]) - 0.5) < 0.1
+
+
+@pytest.mark.parametrize("scheme", ["systematic", "stratified",
+                                    "multinomial"])
+def test_scheme_counts_sum_to_n_on_the_card(cuda, scheme):
+    """On weights whose fp32 scan on the card is not monotone, the counts
+    are still non-negative and sum to N in every row, and the merge gives
+    the plain version's ancestors."""
+    from smc_tpu_torch.smc import kernels as sk
+    g = torch.Generator(device=cuda).manual_seed(3)
+    d, n = 4, 100_003
+    w = -torch.log(torch.rand((d, n), generator=g, device=cuda)) ** 5
+    w = w / w.sum(1, keepdim=True)
+    shape = (d,) if scheme == "systematic" else (d, n)
+    u = torch.rand(shape, generator=g, device=cuda)
+    c = sk.resample_counts(u, w, scheme)
+    assert bool((c >= 0).all()) and bool((c.sum(1) == n).all())
+    offs = (torch.cumsum(c, 1) - c).to(torch.int32)
+    assert torch.equal(sk.counts_to_ancestors(c),
+                       rs.sorted_offsets_to_ancestors_plain(offs))
 
 
 def test_main_path_launches_every_kernel(cuda):
@@ -401,19 +454,25 @@ def test_mm_rk4_kernel_at_every_dataset_count(cuda, n_ds, n):
     assert torch.equal(mm.mm_loglik_pallas(theta, obs, s0, 0.25, 4), got)
 
 
-@pytest.mark.parametrize("d,n", [(64, 2048), (5, 70001), (1, 100000)])
-def test_batched_ladder_kernel(cuda, d, n):
+@pytest.mark.parametrize("d,n,k", [
+    (64, 2048, 81), (5, 70001, 81), (1, 100000, 81),
+    (3, 2049, 81), (3, 2050, 81), (3, 2051, 81),   # rows not 16-byte aligned
+    (4, 1000, 1), (2, 5000, 200),                  # K = 1, K = 200
+    (3, 300, 81),                                  # N below one chunk
+    (2, 300_000, 81)])                             # several chunks a block
+def test_batched_ladder_kernel(cuda, d, n, k):
     """(D, N) x (D, K): against the plain form (rtol 1e-5), the same bits
-    on two runs, one launch, and each row the unbatched entry's bits."""
+    on two runs, one launch, and each row the unbatched entry's bits (also
+    from a copy of the row at another alignment)."""
     g = torch.Generator(device=cuda).manual_seed(d)
     dl = -torch.rand((d, n), generator=g, device=cuda) * 50.0
     dl[:, ::13] = -math.inf
-    dg = (0.7 ** torch.arange(81, device=cuda, dtype=torch.float64)).float()
+    dg = (0.7 ** torch.arange(k, device=cuda, dtype=torch.float64)).float()
     dg = (dg[None] * (0.1 + torch.rand((d, 1), generator=g, device=cuda))
           ).contiguous()
     _build.reset_launch_counts()
     s1, s2 = ld.ladder_stats(dl, dg)
-    assert _build.launch_counts["ladder"] == 1 and s1.shape == (d, 81)
+    assert _build.launch_counts["ladder"] == 1 and s1.shape == (d, k)
     r1, r2 = ld.ladder_stats_plain(dl, dg)
     torch.testing.assert_close(s1, r1, rtol=1e-5, atol=0)
     torch.testing.assert_close(s2, r2, rtol=1e-5, atol=0)
@@ -422,9 +481,45 @@ def test_batched_ladder_kernel(cuda, d, n):
     for p in {0, d - 1}:
         u1, u2 = ld.ladder_stats(dl[p].contiguous(), dg[p].contiguous())
         assert torch.equal(u1, s1[p]) and torch.equal(u2, s2[p])
+        v1, v2 = ld.ladder_stats(dl[p].clone(), dg[p].clone())
+        assert torch.equal(v1, s1[p]) and torch.equal(v2, s2[p])
 
 
-@pytest.mark.parametrize("d,n", [(64, 2048), (3, 50003), (1, 4097)])
+def test_ladder_and_merge_replay_in_a_graph(cuda):
+    """A ladder and a merge captured in one CUDA graph and replayed three
+    times give the eager calls' bits every time: the ladder's ticket
+    counters are back at zero after each launch."""
+    g = torch.Generator(device=cuda).manual_seed(11)
+    dl = -torch.rand((4, 5003), generator=g, device=cuda) * 30.0
+    dg = (0.7 ** torch.arange(81, device=cuda, dtype=torch.float64)).float()
+    dg = dg[None].repeat(4, 1).contiguous()
+    c = torch.multinomial(torch.ones(5003, device=cuda), 4 * 5003,
+                          replacement=True, generator=g).reshape(4, 5003)
+    c = torch.stack([row.bincount(minlength=5003) for row in c])
+    offs = (torch.cumsum(c, 1) - c).to(torch.int32).contiguous()
+    e1, e2 = ld.ladder_stats(dl, dg)
+    ea = rs.sorted_offsets_to_ancestors(offs)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ld.ladder_stats(dl, dg)
+        rs.sorted_offsets_to_ancestors(offs)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        c1, c2 = ld.ladder_stats(dl, dg)
+        ca = rs.sorted_offsets_to_ancestors(offs)
+    for _ in range(3):
+        c1.zero_()
+        ca.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(c1, e1) and torch.equal(c2, e2)
+        assert torch.equal(ca, ea)
+
+
+@pytest.mark.parametrize("d,n", [(64, 2048), (3, 50003), (1, 4097),
+                                 (5, 2176), (4, 2177), (7, 3)])
 def test_batched_merge_kernel(cuda, d, n):
     """(D, N) offset ladders with zero-count ties, one-takes-all and
     all-ones rows: bitwise the plain form, and each row the unbatched
