@@ -1,7 +1,12 @@
 """smc_tpu_torch: the PyTorch/CUDA port of smc-tpu.
 
-Likelihood-tempered Sequential Monte Carlo with residual-systematic
-resampling and adaptive random-walk Metropolis mutation, on torch tensors.
+Likelihood-tempered Sequential Monte Carlo with residual-systematic (or
+systematic, stratified, multinomial) resampling and adaptive random-walk
+Metropolis, preconditioned MALA or HMC mutation, on torch tensors; and
+multi-start MAP estimation (``map_estimate``). The gradient kinds and MAP
+differentiate the likelihood with ``torch.autograd``, so they need one it
+differentiates (MM ``exact`` or ``rk4``, the synthetic targets): the CUDA
+likelihood kernels have no backward and refuse.
 The JAX package ``smc_tpu`` beside it is the reference; nothing here imports
 it or JAX. Entry points run on CUDA unless the caller passes
 ``device="cpu"``. On CUDA the Michaelis-Menten likelihoods
@@ -11,8 +16,9 @@ on hand-written Hopper kernels (``smc_tpu_torch/csrc``); on the CPU their
 plain PyTorch versions run. The hierarchical ensemble (``smc/ensemble.py``)
 and the SBC harness on it (``smc/sbc.py``) run D populations through the
 same kernels, one launch for all. On CUDA the run entry points replay the
-SMC step's pieces as captured CUDA graphs (``smc/graphs.py``); on the CPU
-the same pieces run eagerly.
+SMC step's pieces as captured CUDA graphs (``smc/graphs.py``), backward
+passes included, at step, sweep or block granularity; on the CPU the same
+pieces run eagerly.
 """
 import torch
 
@@ -26,7 +32,8 @@ from smc_tpu_torch.priors import Prior  # noqa: E402
 from smc_tpu_torch.rng import Draws, TorchDraws  # noqa: E402
 from smc_tpu_torch.smc.state import SMCState  # noqa: E402
 from smc_tpu_torch.smc.driver import (StopRequested,  # noqa: E402
-                                      init_state, make_full_run_on_device,
+                                      init_state, make_block_step_fns,
+                                      make_full_run_on_device,
                                       make_run_on_device, make_smc_step,
                                       make_sweep_step_fns, run_smc,
                                       run_smc_on_device, smc_step)
@@ -35,8 +42,10 @@ from smc_tpu_torch.smc.ensemble import (init_ensemble,  # noqa: E402
                                         run_ensemble_on_device,
                                         run_ensemble_sweeps, take_datasets)
 from smc_tpu_torch.smc.kernels import (find_gamma,  # noqa: E402
+                                       hmc_mutation, mala_mutation,
                                        make_mutation_sweeper, mh_mutation,
                                        mutate, residual_systematic_apply,
                                        residual_systematic_resample)
+from smc_tpu_torch.opt import MAPResult, map_estimate  # noqa: E402
 
 __version__ = "0.1.0"

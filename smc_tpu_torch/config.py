@@ -30,6 +30,10 @@ class SMCConfig:
     - ``accept_threshold_min`` / ``mh_ratio_decay``: halve the proposal step
       ratio while the accepted fraction is below the floor.
     - ``max_steps``: max outer SMC steps.
+    - ``mutation``: "rwm", "mala" or "hmc"; ``hmc_leapfrog`` leapfrog steps
+      per HMC proposal.
+    - ``block_particles``: the slab size of ``run_smc(granularity=
+      "block")`` and of the initial likelihood sweep.
     """
 
     n_particles: int = 1000
@@ -49,7 +53,8 @@ class SMCConfig:
     # "ring" (the JAX package's sharded redistribution) is
     # residual-systematic on one device.
     resampling: str = "residual_systematic"
-    # Only "rwm" runs in this package so far; "mala"/"hmc" raise in mutate.
+    # "rwm", or the gradient kinds "mala"/"hmc", which need a likelihood
+    # that autograd differentiates (MM "exact" or "rk4", not the kernels).
     mutation: str = "rwm"
     hmc_leapfrog: int = 5
     block_particles: Optional[int] = None

@@ -1,4 +1,5 @@
-"""Carry data across from NumPy: priors, models and sampler states.
+"""Carry data across from NumPy: priors, models, sampler states and MAP
+results.
 
 This system has no weights. What crosses between the JAX package and this
 one is a model's data and prior and a sampler's state, as NumPy arrays;
@@ -18,6 +19,8 @@ from smc_tpu_torch.config import resolve_device
 from smc_tpu_torch.models.methanation import (EST_DEFAULT, Conditions,
                                               MethanationModel)
 from smc_tpu_torch.models.michaelis_menten import MichaelisMentenModel
+from smc_tpu_torch.models.synthetic import BananaModel, GaussianMixtureModel
+from smc_tpu_torch.opt import MAPResult
 from smc_tpu_torch.priors import Prior
 from smc_tpu_torch.rng import TorchDraws
 from smc_tpu_torch.smc.state import SMCState
@@ -37,6 +40,12 @@ def prior_from_numpy(kind, low, high, loc, scale, device="cuda") -> Prior:
                  scale=t(scale, torch.float32))
 
 
+def _as_prior(prior, dev) -> Prior:
+    if isinstance(prior, Mapping):
+        return prior_from_numpy(device=dev, **prior)
+    return prior.to(dev)
+
+
 def mm_model_from_numpy(obs, s0, ts, prior, method: str = "rk4",
                         substeps: int = 4, est_sigma: bool = True,
                         sigma_fixed: float = 0.02, device="cuda"
@@ -44,15 +53,11 @@ def mm_model_from_numpy(obs, s0, ts, prior, method: str = "rk4",
     """A Michaelis-Menten model from obs (n_ds, T), s0 (n_ds,), ts (T,) and
     a prior: a port ``Prior`` or a mapping of the five prior arrays."""
     dev = resolve_device(device)
-    if isinstance(prior, Mapping):
-        prior = prior_from_numpy(device=dev, **prior)
-    else:
-        prior = prior.to(dev)
 
     def f32(a):
         return torch.as_tensor(np.asarray(a, np.float32), device=dev)
     return MichaelisMentenModel(obs=f32(obs), s0=f32(s0), ts=f32(ts),
-                                prior=prior, method=method,
+                                prior=_as_prior(prior, dev), method=method,
                                 substeps=substeps, est_sigma=est_sigma,
                                 sigma_fixed=float(sigma_fixed))
 
@@ -65,14 +70,52 @@ def methanation_model_from_numpy(cond: Mapping, obs, prior,
     port ``Prior`` or a mapping of the five prior arrays. ``solver_kw`` are
     further ``MethanationModel`` fields (nx, n_steps, jac_stride, ...)."""
     dev = resolve_device(device)
-    if isinstance(prior, Mapping):
-        prior = prior_from_numpy(device=dev, **prior)
-    else:
-        prior = prior.to(dev)
     return MethanationModel(
         cond=Conditions.from_numpy(cond, dev),
         obs=torch.as_tensor(np.asarray(obs, np.float32), device=dev),
-        prior=prior, est_idx=tuple(est_idx), **solver_kw)
+        prior=_as_prior(prior, dev), est_idx=tuple(est_idx), **solver_kw)
+
+
+def banana_model_from_numpy(prior, a: float = 1.0, b: float = 20.0,
+                            scale0: float = 1.0, device="cuda"
+                            ) -> BananaModel:
+    """A banana target with the JAX model's constants and prior (a port
+    ``Prior`` or a mapping of the five prior arrays)."""
+    dev = resolve_device(device)
+    return BananaModel(a=float(a), b=float(b), scale0=float(scale0),
+                       prior=_as_prior(prior, dev), device=dev.type)
+
+
+def gmm_model_from_numpy(means, stds, log_weights, prior,
+                         device="cuda") -> GaussianMixtureModel:
+    """A Gaussian mixture from means (K, d), stds (K,), log_weights (K,)
+    and a prior (a port ``Prior`` or a mapping of the five prior
+    arrays)."""
+    dev = resolve_device(device)
+
+    def f32(a):
+        return torch.tensor(np.asarray(a, np.float32), device=dev)
+    means = f32(means)
+    return GaussianMixtureModel(
+        means=means, stds=f32(stds), log_weights=f32(log_weights),
+        prior=_as_prior(prior, dev),
+        param_names=tuple(f"x{i}" for i in range(means.shape[1])))
+
+
+def map_result_to_numpy(res: MAPResult) -> dict:
+    """A MAP result's four fields as NumPy arrays."""
+    return {f: getattr(res, f).detach().cpu().numpy()
+            for f in MAPResult._fields}
+
+
+def map_result_from_numpy(d: Mapping, device="cuda") -> MAPResult:
+    """A MAPResult from a mapping of its four fields (the JAX package's
+    ``MAPResult._asdict()`` as NumPy arrays, or :func:`map_result_to_numpy`'s
+    output)."""
+    dev = resolve_device(device)
+    return MAPResult(*(torch.tensor(np.asarray(d[f], np.float32),
+                                    device=dev)
+                       for f in MAPResult._fields))
 
 
 def state_to_numpy(state: SMCState) -> dict:

@@ -662,7 +662,18 @@ class MethanationModel:
         base-parameter overwrite of subset estimation) and the flattened
         particle x condition batch runs through one lanes-major BDF march
         per chunk of ``particle_chunk`` particles.
+
+        It has no gradient: the march runs the block-Thomas kernels, which
+        have no backward, and the steady march with its implicit-function
+        adjoint is not ported, so a theta that requires grad (the gradient
+        mutations') raises.
         """
+        if theta.requires_grad:
+            raise NotImplementedError(
+                "the methanation likelihood has no gradient yet: its march "
+                "runs the block-Thomas kernels, which have no backward, and "
+                "the steady march's implicit-function adjoint is not ported "
+                "(ROADMAP Queue 1 item 8); use mutation='rwm'")
         flows, sigma = self._flows_and_sigma(theta)
         return self._ll_from_flows(flows, sigma), flows
 

@@ -53,7 +53,7 @@ def _substrate(method: str, vmax, km, s0, ts, substeps: int):
     fixed-grid RK4 march."""
     s0 = s0[:, None]                                            # (n_ds, 1)
     if method == "exact":
-        km_safe = torch.maximum(km, km.new_tensor(1e-8))
+        km_safe = torch.maximum(km, torch.full_like(km, 1e-8))
         logz = (torch.log(s0 / km_safe)[None]
                 + (s0[None] - vmax[None, None, :]
                    * ts[:, None, None]) / km_safe)              # (T, n_ds, N)
@@ -69,14 +69,15 @@ def _substrate(method: str, vmax, km, s0, ts, substeps: int):
 def _gaussian_ll(resid, sigma):
     """resid (T, n_ds, ...), sigma (...) -> log-likelihood (...): summed
     over time per dataset, then over datasets. sigma <= 0 -> -inf;
-    non-finite trajectories -> -inf, never NaN."""
+    non-finite trajectories -> -inf, never NaN. Its constants are made on
+    the device (``full_like``), so it runs inside a graph capture."""
     n = resid.shape[0]
-    sigma_safe = torch.maximum(sigma, sigma.new_tensor(1e-12))
+    sigma_safe = torch.maximum(sigma, torch.full_like(sigma, 1e-12))
     ll_ds = (-0.5 * n * (_LOG2PI + 2.0 * torch.log(sigma_safe))
              - torch.sum(resid * resid, dim=0) / (2.0 * sigma_safe ** 2))
     total = torch.sum(ll_ds, dim=0)
     bad = (sigma <= 0.0) | ~torch.isfinite(total)
-    return torch.where(bad, total.new_tensor(-math.inf), total)
+    return torch.where(bad, -math.inf, total)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -221,6 +222,7 @@ def make_mm_data_loglik(ts, s0, method: str = "exact", substeps: int = 4):
         return (_gaussian_ll(resid, theta[..., 2]),
                 P_model.permute(2, 3, 1, 0))                 # (D, N, n_ds, T)
 
+    fn.method = method
     return fn
 
 

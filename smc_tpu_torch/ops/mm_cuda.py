@@ -6,7 +6,9 @@ Port of ``smc_tpu/ops/mm_pallas.py``: the closed form
 and its batched form, the JAX function under ``vmap``, kernel
 ``csrc/mm_rk4.cu``). Each plain PyTorch version below repeats its
 kernel's arithmetic op for op. A CUDA tensor launches the kernel (or
-raises); a CPU tensor takes the plain version.
+raises); a CPU tensor takes the plain version. Neither carries an autograd
+graph: the kernels have no backward, so the gradient mutations refuse
+these likelihoods (smc/kernels.py::_make_ll_and_grad).
 """
 from __future__ import annotations
 
@@ -90,10 +92,12 @@ def mm_loglik_exact_batched(theta: torch.Tensor, obs: torch.Tensor,
 
     B populations, each with its own observations, in one launch (grid.y).
     CUDA tensors launch ``csrc/mm_exact.cu``; CPU tensors take
-    :func:`mm_loglik_exact_plain`.
+    :func:`mm_loglik_exact_plain`, without autograd: the kernel has no
+    backward, and its stand-in on the CPU has none either.
     """
     if theta.device.type == "cpu":
-        return mm_loglik_exact_plain(theta, obs, s0, dt)
+        with torch.no_grad():
+            return mm_loglik_exact_plain(theta, obs, s0, dt)
     if theta.device.type != "cuda":
         raise ValueError(f"unsupported device {theta.device}")
     dev = theta.device
@@ -187,10 +191,12 @@ def mm_loglik_pallas_batched(theta: torch.Tensor, obs: torch.Tensor,
     as the JAX package's ``mm_loglik_pallas`` under ``vmap``.
 
     CUDA tensors launch ``csrc/mm_rk4.cu``; CPU tensors take
-    :func:`mm_loglik_rk4_plain`.
+    :func:`mm_loglik_rk4_plain`, without autograd (the kernel has no
+    backward).
     """
     if theta.device.type == "cpu":
-        return mm_loglik_rk4_plain(theta, obs, s0, dt, substeps)
+        with torch.no_grad():
+            return mm_loglik_rk4_plain(theta, obs, s0, dt, substeps)
     if theta.device.type != "cuda":
         raise ValueError(f"unsupported device {theta.device}")
     dev = theta.device

@@ -16,9 +16,12 @@ per step (is gamma below 1?) and once per mutation sweep after the first
   :func:`make_run_on_device` (state -> state),
   :func:`make_full_run_on_device` (key -> state), :func:`run_smc_on_device`:
   the graphed pieces, step and runs.
+- :func:`make_block_step_fns`: the block-granularity pieces (each sweep's
+  core in slabs of ``cfg.block_particles`` rows), graphed likewise.
 - :func:`run_smc`: the observable loop, with the per-step metric line and a
-  cooperative stop file (polled per step, or per sweep with
-  ``granularity="sweep"``; :class:`StopRequested`).
+  cooperative stop file (polled per step, per sweep with
+  ``granularity="sweep"``, per slab with ``"block"``;
+  :class:`StopRequested`).
 """
 from __future__ import annotations
 
@@ -33,7 +36,8 @@ from smc_tpu_torch.config import SMCConfig
 from smc_tpu_torch.priors import Prior
 from smc_tpu_torch.rng import as_draws
 from smc_tpu_torch.smc import graphs
-from smc_tpu_torch.smc.kernels import (find_gamma, make_sweep_loop_pieces,
+from smc_tpu_torch.smc.kernels import (find_gamma, make_mutation_parts,
+                                       make_sweep_loop_pieces,
                                        mutation_result, resample_apply,
                                        resample_uniforms, sweep_limit,
                                        sweep_until_done)
@@ -45,9 +49,10 @@ LogLikFn = Callable[[torch.Tensor], Tuple[torch.Tensor, object]]
 
 
 class StopRequested(Exception):
-    """Raised between two sweeps of a step when the cooperative stop file
-    appears (``run_smc(granularity="sweep", stop_file=...)``); the run then
-    returns the last completed step's state."""
+    """Raised between two sweeps of a step (``run_smc(granularity=
+    "sweep", stop_file=...)``), or between two slabs of a sweep
+    (``granularity="block"``), when the cooperative stop file appears; the
+    run then returns the last completed step's state."""
 
 
 def _stop_requested(stop_file: Optional[str]) -> bool:
@@ -57,13 +62,20 @@ def _stop_requested(stop_file: Optional[str]) -> bool:
 def init_state(key, model, cfg: SMCConfig,
                particles: Optional[torch.Tensor] = None) -> SMCState:
     """Sample the prior (unless ``particles`` is given) and evaluate the
-    initial likelihood sweep. ``key`` is an int seed or a ``Draws``; the
-    run's device is the model's."""
+    initial likelihood sweep, in slabs of ``cfg.block_particles`` rows when
+    that is set and smaller than N (the likelihood is row-independent, so
+    the result is the unsplit sweep's). ``key`` is an int seed or a
+    ``Draws``; the run's device is the model's."""
     dev = model.prior.device
     draws = as_draws(key, dev)
     if particles is None:
         particles = model.prior.sample(draws, cfg.n_particles, cfg.dtype)
-    log_lik, _ = model.log_likelihood(particles)
+    n, b = particles.shape[0], cfg.block_particles
+    if b and b < n:
+        log_lik = torch.cat([model.log_likelihood(particles[lo:lo + b])[0]
+                             for lo in range(0, n, b)])
+    else:
+        log_lik, _ = model.log_likelihood(particles)
 
     def scalar(v, dtype=cfg.dtype):
         return torch.full((), v, dtype=dtype, device=dev)
@@ -113,28 +125,34 @@ def _running(state: SMCState, cfg: SMCConfig) -> torch.Tensor:
 def _check_granularity(granularity: str) -> None:
     if granularity not in ("step", "sweep", "block"):
         raise ValueError(f"unknown granularity {granularity!r}")
-    if granularity == "block":
-        raise NotImplementedError(
-            "granularity 'block' is not ported yet (ROADMAP Queue 1 item "
-            "10); 'step' and 'sweep' run")
+
+
+def _prep_and_finish(cfg: SMCConfig):
+    """The ``prep`` and ``finish`` pieces every granularity shares. ``p``
+    is (gamma search, particles, log_lik after resampling, sweep limit)."""
+    def prep(s, data=None):
+        g = find_gamma(s.log_lik, s.gamma, cfg)
+        parts, lk = _resample(g, s, cfg)
+        return g, parts, lk, sweep_limit(g.gamma, cfg)
+
+    def finish(s, p, c, data=None):
+        new = _advance(s, p[0], mutation_result(c), cfg)
+        return new, _running(new, cfg)
+
+    return prep, finish
 
 
 def step_pieces(loglik_fn: LogLikFn, prior: Prior, cfg: SMCConfig,
                 model=None) -> graphs.Pieces:
     """The eager pieces of one step (signatures in smc/graphs.py); ``init``
-    is the prior draw and initial sweep of ``model``, when given. ``p`` is
-    (gamma search, particles, log_lik after resampling, sweep limit)."""
+    is the prior draw and initial sweep of ``model``, when given."""
     sweep_init, sweep = make_sweep_loop_pieces(cfg.mutation, loglik_fn,
                                                prior, cfg)
+    prep, finish = _prep_and_finish(cfg)
 
     def init(key, data=None):
         s = init_state(key, model, cfg)
         return s, _running(s, cfg)
-
-    def prep(s, data=None):
-        g = find_gamma(s.log_lik, s.gamma, cfg)
-        parts, lk = _resample(g, s, cfg)
-        return g, parts, lk, sweep_limit(g.gamma, cfg)
 
     def mut_init(s, p, data=None):
         return sweep_init(s.key, p[1], p[2], p[0].gamma, p[3])
@@ -142,12 +160,52 @@ def step_pieces(loglik_fn: LogLikFn, prior: Prior, cfg: SMCConfig,
     def mut_sweep(s, p, c, data=None):
         return sweep(c, p[0].gamma, p[3])
 
-    def finish(s, p, c, data=None):
-        new = _advance(s, p[0], mutation_result(c), cfg)
-        return new, _running(new, cfg)
-
     return graphs.Pieces(None if model is None else init, prep, mut_init,
                          mut_sweep, finish)
+
+
+def block_pieces(loglik_fn: LogLikFn, prior: Prior,
+                 cfg: SMCConfig) -> graphs.BlockPieces:
+    """The eager pieces of one block-granularity step (signatures in
+    smc/graphs.py): a sweep is ``draw`` (the covariance factors and the
+    full-N draws), ``core`` once per slab of ``cfg.block_particles`` rows
+    (propose, evaluate, accept), and ``admin`` (the controller, over the
+    slabs' outputs concatenated); the gradient kinds' initial gradients
+    come slab by slab from ``grad``. The core is row-independent, so the
+    slabs give the full-N core's rows."""
+    init_fn, draw_fn, core_fn, admin_fn, grad_fn = make_mutation_parts(
+        cfg.mutation, loglik_fn, prior, cfg)
+    b = cfg.block_particles or cfg.n_particles
+    prep, finish = _prep_and_finish(cfg)
+
+    def grad(s, p, lo):
+        return grad_fn(p[1][lo:lo + b])
+
+    def mut_init(s, p, grads):
+        return init_fn(s.key, p[1], p[2],
+                       None if grads is None else torch.cat(grads))
+
+    def draw(s, c):
+        return draw_fn(c)
+
+    def core(s, p, c, a, lo):
+        rows = slice(lo, lo + b)
+        return core_fn(c.particles[rows], c.log_lik[rows],
+                       c.log_prior[rows],
+                       c.grad if c.grad.dim() == 0 else c.grad[rows],
+                       c.mh_ratio, a[1], tuple(x[rows] for x in a[2]),
+                       p[0].gamma)
+
+    def admin(s, p, c, a, outs):
+        cols = list(zip(*outs))
+        g1 = cols[3][0] if cols[3][0].dim() == 0 else torch.cat(cols[3])
+        c = admin_fn(c, a[0], torch.cat(cols[0]), torch.cat(cols[1]),
+                     torch.cat(cols[2]), g1, torch.cat(cols[4]), p[0].gamma)
+        return c, (c.j < p[3]) & ~c.done
+
+    return graphs.BlockPieces(
+        prep, None if grad_fn is None else grad, mut_init, draw, core, admin,
+        finish, tuple(range(0, cfg.n_particles, b)))
 
 
 def run_step(pieces, s, data=None, stop_file: Optional[str] = None):
@@ -191,26 +249,89 @@ def make_sweep_step_fns(model, cfg: SMCConfig):
     and the host reads one flag. On CUDA a returned value is the graphs'
     buffer until the same piece runs again, and ``state`` must be what the
     last ``finish`` returned (or a state to start from, copied in)."""
-    stepper = _Stepper(model, cfg)
+    return _bound_pieces(_Stepper(model, cfg),
+                         ("prep", "mut_init", "mut_sweep", "finish"))
 
+
+def _bound_pieces(stepper, names):
+    """Each named piece of ``stepper``'s programs as a function of a state
+    (then the piece's other arguments), run on the state's device; None
+    for a piece the programs do not have."""
     def piece(name):
         def call(s, *rest):
             pcs, s, _ = stepper.programs.on(s.particles.device, s, None)
             return getattr(pcs, name)(s, *rest)
         return call
-    return tuple(piece(n) for n in ("prep", "mut_init", "mut_sweep",
-                                     "finish"))
+    return tuple(None if getattr(stepper.programs.pieces, n) is None
+                 else piece(n) for n in names)
+
+
+def make_block_step_fns(model, cfg: SMCConfig):
+    """The block-granularity step's pieces ``(prep, mut_init, draw, core,
+    admin, grad_fn, finish)``, each one device execution: on CUDA a
+    captured graph (one per slab for ``core`` and ``grad_fn``, over views
+    of the full-N buffers), on the CPU the eager piece. Signatures
+    (smc/graphs.py, ``BlockPieces``):
+
+    - ``prep(state) -> p``: gamma search and resampling;
+    - ``grad_fn(state, p, lo)``: the initial likelihood gradients of the
+      slab that starts at row ``lo`` (None for "rwm");
+    - ``mut_init(state, p, grads) -> carry``: the mutation carry, with the
+      slabs' gradients (None for "rwm"); no sweep;
+    - ``draw(state, carry) -> a``: a sweep's covariance factors and its
+      full-N draws;
+    - ``core(state, p, carry, a, lo)``: propose, evaluate and accept the
+      ``cfg.block_particles`` rows from ``lo``;
+    - ``admin(state, p, carry, a, outs) -> (carry, more)``: the controller
+      over the slabs' outputs, and the flag "another sweep is due";
+    - ``finish(state, p, carry) -> (state, running)``.
+
+    As for :func:`make_sweep_step_fns`, a returned value is the graphs'
+    buffer until the same piece runs again. The JAX package's block
+    pieces take the state's parts as arguments (``mut_init(k_mh, parts,
+    lk, g0)``, ``core(parts, lk1, ...)``); here each takes the state, the
+    step's ``p`` and the carry, as the graphs read them."""
+    return _bound_pieces(_Stepper(model, cfg, block=True),
+                         ("prep", "mut_init", "draw", "core", "admin",
+                          "grad", "finish"))
+
+
+def _run_step_by_blocks(state: SMCState, cfg: SMCConfig, fns,
+                        stop_file: Optional[str] = None):
+    """One step through :func:`make_block_step_fns`'s pieces: ``(state,
+    running)``. The first sweep needs no read; each later one follows one
+    read of the flag the last ``admin`` wrote. With ``stop_file``, polled
+    before every slab's core: :class:`StopRequested`."""
+    prep, mut_init, draw, core, admin, grad_fn, finish = fns
+    starts = range(0, state.n_particles,
+                   cfg.block_particles or state.n_particles)
+    p = prep(state)
+    grads = (None if grad_fn is None
+             else [grad_fn(state, p, lo) for lo in starts])
+    c = mut_init(state, p, grads)
+    more = None
+    while more is None or graphs.read(more):
+        a = draw(state, c)
+        outs = []
+        for lo in starts:
+            if _stop_requested(stop_file):
+                raise StopRequested(stop_file)
+            outs.append(core(state, p, c, a, lo))
+        c, more = admin(state, p, c, a, outs)
+    return finish(state, p, c)
 
 
 class _Stepper:
     """The capture cache behind the graphed entry points of one model and
     configuration."""
 
-    def __init__(self, model, cfg: SMCConfig, init: bool = False):
+    def __init__(self, model, cfg: SMCConfig, init: bool = False,
+                 block: bool = False):
         self.model, self.cfg = model, cfg
-        self.programs = graphs.Programs(step_pieces(
-            model.log_likelihood, model.prior, cfg,
-            model if init else None))
+        self.programs = graphs.Programs(
+            block_pieces(model.log_likelihood, model.prior, cfg) if block
+            else step_pieces(model.log_likelihood, model.prior, cfg,
+                             model if init else None))
 
     def step(self, state: SMCState) -> SMCState:
         """One step; the returned state is a copy."""
@@ -252,17 +373,31 @@ def run_smc(model, cfg: SMCConfig, key,
     """Host-observable SMC run through the graphed pieces, with the
     per-step metric line. ``state`` may be a state to resume from.
     ``stop_file``: when the file appears, the run returns the last
-    completed step's state; it is polled before every step, and with
-    ``granularity="sweep"`` also between the sweeps of a step. Both
-    granularities run the same pieces and give the same state.
-    ``"block"`` is not ported. ``callback`` gets a copy of each step's
-    state."""
+    completed step's state; it is polled before every step, with
+    ``granularity="sweep"`` also between the sweeps of a step, and with
+    ``"block"`` before every slab of a sweep
+    (:func:`make_block_step_fns`: each sweep's likelihood work in
+    ``n_particles / cfg.block_particles`` executions). ``"step"`` and
+    ``"sweep"`` run the same pieces and give the same state; ``"block"``
+    runs the same core on slabs of rows. ``callback`` gets a copy of each
+    step's state."""
     _check_granularity(granularity)
     if state is None:
         state = init_state(key, model, cfg)
-    stepper = _Stepper(model, cfg)
-    pcs, s, data = stepper.programs.on(state.particles.device, state, None)
-    poll = stop_file if granularity == "sweep" else None
+    if granularity == "block":
+        fns = make_block_step_fns(model, cfg)
+        s = state
+
+        def step(s):
+            return _run_step_by_blocks(s, cfg, fns, stop_file)
+    else:
+        stepper = _Stepper(model, cfg)
+        pcs, s, data = stepper.programs.on(state.particles.device, state,
+                                           None)
+        poll = stop_file if granularity == "sweep" else None
+
+        def step(s):
+            return run_step(pcs, s, data, poll)
     running = _running(s, cfg)
     t0 = time.perf_counter()
     while graphs.read(running):
@@ -271,7 +406,7 @@ def run_smc(model, cfg: SMCConfig, key,
                  f"step {int(s.step)} gamma={float(s.gamma):.6f}", warn=True)
             break
         try:
-            s, running = run_step(pcs, s, data, poll)
+            s, running = step(s)
         except StopRequested:
             _say(f"run_smc: stop requested mid-step — returning last "
                  f"completed step {int(s.step)} gamma={float(s.gamma):.6f}",

@@ -135,8 +135,11 @@ def make_ensemble_sweep_fns(prior: Prior, loglik_fn: DataLogLik,
 
     def sweeper(data):
         if not built or built[0] is not data:
-            built[:] = [data, make_mutation_sweeper(
-                cfg.mutation, lambda th: loglik_fn(th, data), prior, cfg)]
+            def bound(th):
+                return loglik_fn(th, data)
+            bound.method = getattr(loglik_fn, "method", None)
+            built[:] = [data, make_mutation_sweeper(cfg.mutation, bound,
+                                                    prior, cfg)]
         return built[1]
 
     def einit(key, data):

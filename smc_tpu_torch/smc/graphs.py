@@ -18,6 +18,14 @@ recorded once and replayed with one launch. Here each piece is one graph:
 ``more`` and ``running`` are bool flags on the device, the only values the
 host reads (:func:`read`): one per sweep after the first and one per step.
 
+A block-granularity step (:class:`BlockPieces`, :class:`BlockGraphs`)
+splits each sweep further: ``draw`` (the covariance factors and the full-N
+draws), one ``core`` graph per slab of rows, over views of the carry and
+the draws at its rows, and ``admin`` (the controller over the slabs'
+outputs); the gradient kinds' initial gradients come from one ``grad``
+graph per slab before ``mut_init``, which does not sweep. The gradient
+kinds' backward passes are captured with their forward passes.
+
 :class:`StepGraphs` holds the graphs of one shape. They read and write fixed
 buffers: the state and the data are copied in when a run starts (not when
 they already are the buffers), each sweep writes its carry back over the
@@ -38,6 +46,11 @@ call runs, which under capture happens once. ``_build.launches_of`` takes
 the launches of the warm-up and of each capture back out of the counts and
 records them per graph; every replay adds them again, so
 ``_build.launch_counts`` stays the number of kernel executions.
+
+One module owns warm-up, capture and replay (:func:`warm_up`,
+:func:`capture`, :func:`replay`): the step graphs here and
+:func:`repeat`, which replays one captured update ``n`` times (MAP's Adam
+step), all count their captures and replays in :data:`stats`.
 
 On the CPU there are no graphs: the same pieces run eagerly (the tests'
 path).
@@ -80,6 +93,28 @@ class Pieces(NamedTuple):
     finish: Callable
 
 
+class BlockPieces(NamedTuple):
+    """One block-granularity step cut at its seams; ``starts`` are the
+    slabs' first rows. ``grad`` is None for a kind without gradients.
+
+    - ``prep(state, data=None) -> p`` and ``finish(state, p, carry,
+      data=None) -> (state, running)`` as in :class:`Pieces`;
+    - ``grad(state, p, lo)``: one slab's initial gradients;
+    - ``mut_init(state, p, grads) -> carry`` (no sweep);
+    - ``draw(state, carry) -> a``: (key, covariance factors, draws);
+    - ``core(state, p, carry, a, lo)``: one slab's proposal, evaluation
+      and accept;
+    - ``admin(state, p, carry, a, outs) -> (carry, more)``."""
+    prep: Callable
+    grad: Optional[Callable]
+    mut_init: Callable
+    draw: Callable
+    core: Callable
+    admin: Callable
+    finish: Callable
+    starts: tuple
+
+
 def tree_map(fn, tree):
     """``fn`` applied to every tensor of a nest of dataclasses, named
     tuples, tuples and lists; other leaves (a ``Draws``, None) as they
@@ -116,6 +151,60 @@ def _copy_into(dst, src) -> None:
             d.copy_(s)
 
 
+def warm_up(fn: Callable, device: torch.device) -> None:
+    """``fn()`` once, eagerly, on a side stream, as a capture needs before
+    it (autograd's backward included); its launches are not counted."""
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with _build.launches_of({}), torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream(device).wait_stream(side)
+    torch.cuda.synchronize(device)
+
+
+def capture(fn: Callable, pool=None, generator=None):
+    """``fn()`` recorded as one CUDA graph (drawing from ``generator``, if
+    given): ``(graph, launches, out)``, ``out`` being ``fn``'s outputs (the
+    graph's buffers) and ``launches`` the kernel launches that each
+    :func:`replay` adds to the counts."""
+    graph = torch.cuda.CUDAGraph()
+    if generator is not None:
+        graph.register_generator_state(generator)
+    launches = {}
+    with _build.launches_of(launches):
+        with torch.cuda.graph(graph, pool=pool):
+            out = fn()
+    stats["captures"] += 1
+    return graph, launches, out
+
+
+def replay(graph: torch.cuda.CUDAGraph, launches: dict) -> None:
+    graph.replay()
+    _build.count_replay(launches)
+    stats["replays"] += 1
+
+
+def repeat(step: Callable, state: tuple, n: int) -> tuple:
+    """``state`` (a tuple of tensors) after ``n`` applications of ``step``.
+    On CUDA one step is warmed up, captured over buffers that it updates in
+    place, and replayed ``n`` times; on the CPU it runs eagerly."""
+    if n == 0:
+        return state
+    device = state[0].device
+    if device.type != "cuda":
+        for _ in range(n):
+            state = step(state)
+        return state
+    t0 = time.perf_counter()
+    buf = clone(state)
+    warm_up(lambda: step(clone(buf)), device)
+    graph, launches, _ = capture(lambda: _copy_into(buf, step(buf)))
+    stats["capture_seconds"] += time.perf_counter() - t0
+    for _ in range(n):
+        replay(graph, launches)
+    return buf
+
+
 def _generator(key) -> torch.Generator:
     if not isinstance(key, TorchDraws):
         raise TypeError(
@@ -150,23 +239,24 @@ class StepGraphs:
         earlier graphs' replays, so they may share the pool."""
         t0 = time.perf_counter()
         _build.load()                        # build before any capture
-        pcs = self.pieces
         self.D = clone(data)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(torch.cuda.current_stream(self.device))
-        with _build.launches_of({}), torch.cuda.stream(side):
-            if pcs.init is not None:
-                state = pcs.init(self.draws, self.D)[0]
-            self.S = clone(state).replace(key=self.draws)
-            p = pcs.prep(self.S, self.D)
-            c, _ = pcs.mut_init(self.S, p, self.D)
-            c, _ = pcs.mut_sweep(self.S, p, c, self.D)
-            pcs.finish(self.S, p, c, self.D)
-            del p, c
-        torch.cuda.current_stream(self.device).wait_stream(side)
+        warm_up(lambda: self._warm_up(state), self.device)
+        self._record_pieces()
         torch.cuda.synchronize(self.device)
-        S, D = self.S, self.D
+        stats["capture_seconds"] += time.perf_counter() - t0
 
+    def _warm_up(self, state) -> None:
+        pcs, D = self.pieces, self.D
+        if pcs.init is not None:
+            state = pcs.init(self.draws, D)[0]
+        self.S = clone(state).replace(key=self.draws)
+        p = pcs.prep(self.S, D)
+        c, _ = pcs.mut_init(self.S, p, D)
+        c, _ = pcs.mut_sweep(self.S, p, c, D)
+        pcs.finish(self.S, p, c, D)
+
+    def _record_pieces(self) -> None:
+        pcs, S, D = self.pieces, self.S, self.D
         if pcs.init is not None:
             def init():
                 s, running = pcs.init(self.draws, D)
@@ -181,37 +271,30 @@ class StepGraphs:
             c, more = pcs.mut_sweep(S, self.P, self.C, D)
             _copy_into(self.C, c)
             self.more.copy_(more)
+        self._record("mut_sweep", sweep)
+        self._record_finish()
+
+    def _record_finish(self) -> None:
+        pcs, S, D = self.pieces, self.S, self.D
 
         def finish():
             s, running = pcs.finish(S, self.P, self.C, D)
             _copy_into(S, s)
             return running
-        self._record("mut_sweep", sweep)
         self.running = self._record("finish", finish)
-        torch.cuda.synchronize(self.device)
-        stats["capture_seconds"] += time.perf_counter() - t0
 
     def _record(self, name: str, fn):
-        graph = torch.cuda.CUDAGraph()
-        graph.register_generator_state(self.draws.generator)
-        launches = {}
-        with _build.launches_of(launches):
-            with torch.cuda.graph(graph, pool=self.pool):
-                out = fn()
+        graph, launches, out = capture(fn, self.pool, self.draws.generator)
         self.graphs[name] = (graph, launches)
-        stats["captures"] += 1
         return out
 
     def _replay(self, name: str, key) -> None:
         gen = _generator(key)
-        graph, launches = self.graphs[name]
         own = self.draws.generator
         own.set_state(gen.get_state())
-        graph.replay()
+        replay(*self.graphs[name])
         gen.set_state(own.get_state())
-        _build.count_replay(launches)
         self.replays += 1
-        stats["replays"] += 1
 
     # -- the pieces -------------------------------------------------------
     def bind(self, state, data):
@@ -251,6 +334,69 @@ class StepGraphs:
         return c._replace(key=s.key) if hasattr(c, "key") else c
 
 
+class BlockGraphs(StepGraphs):
+    """The pieces of a block-granularity step (:class:`BlockPieces`) as
+    CUDA graphs for one shape: ``prep``, a ``grad`` graph per slab (the
+    gradient kinds), ``mut_init``, ``draw``, a ``core`` graph per slab,
+    ``admin`` and ``finish``. A slab's graph reads views of the full-N
+    buffers at its rows and keeps its outputs in buffers of its own, which
+    ``admin`` reads. No graph copies from the host or reads the device."""
+
+    def _warm_up(self, state) -> None:
+        pcs, D = self.pieces, self.D
+        self.S = clone(state).replace(key=self.draws)
+        p = pcs.prep(self.S, D)
+        grads = (None if pcs.grad is None
+                 else [pcs.grad(self.S, p, lo) for lo in pcs.starts])
+        c = pcs.mut_init(self.S, p, grads)
+        a = pcs.draw(self.S, c)
+        outs = [pcs.core(self.S, p, c, a, lo) for lo in pcs.starts]
+        c, _ = pcs.admin(self.S, p, c, a, outs)
+        pcs.finish(self.S, p, c, D)
+
+    def _record_pieces(self) -> None:
+        pcs, S, D = self.pieces, self.S, self.D
+        self.P = self._record("prep", lambda: pcs.prep(S, D))
+        self.G = None if pcs.grad is None else [
+            self._record(("grad", lo), lambda lo=lo: pcs.grad(S, self.P, lo))
+            for lo in pcs.starts]
+        self.C = self._record("mut_init",
+                              lambda: pcs.mut_init(S, self.P, self.G))
+        self.A = self._record("draw", lambda: pcs.draw(S, self.C))
+        self.O = {lo: self._record(
+            ("core", lo), lambda lo=lo: pcs.core(S, self.P, self.C, self.A,
+                                                 lo))
+            for lo in pcs.starts}
+
+        def admin():
+            c, more = pcs.admin(S, self.P, self.C, self.A,
+                                [self.O[lo] for lo in pcs.starts])
+            _copy_into(self.C, c)
+            return more
+        self.more = self._record("admin", admin)
+        self._record_finish()
+
+    def grad(self, s, p, lo):
+        self._replay(("grad", lo), s.key)
+        return self.G[self.pieces.starts.index(lo)]
+
+    def mut_init(self, s, p, grads):
+        self._replay("mut_init", s.key)
+        return self._carry(s)
+
+    def draw(self, s, c):
+        self._replay("draw", s.key)
+        return (s.key,) + tuple(self.A[1:])
+
+    def core(self, s, p, c, a, lo):
+        self._replay(("core", lo), s.key)
+        return self.O[lo]
+
+    def admin(self, s, p, c, a, outs):
+        self._replay("admin", s.key)
+        return self._carry(s), self.more
+
+
 class Programs:
     """The capture cache of one ``make_*`` function: a :class:`StepGraphs`
     per shape, as a jitted function keeps one executable per shape."""
@@ -271,6 +417,8 @@ class Programs:
         shape += (state is None,)
         prog = self.by_shape.get(shape)
         if prog is None:
-            prog = self.by_shape[shape] = StepGraphs(self.pieces, device)
+            kind = (BlockGraphs if isinstance(self.pieces, BlockPieces)
+                    else StepGraphs)
+            prog = self.by_shape[shape] = kind(self.pieces, device)
         state, data = prog.bind(state, data)
         return prog, state, data

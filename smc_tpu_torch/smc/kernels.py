@@ -1,10 +1,12 @@
-"""Core SMC kernels: adaptive tempering, resampling, RW-MH mutation
-(PyTorch port of the main-path parts of ``smc_tpu.smc.kernels``).
+"""Core SMC kernels: adaptive tempering, resampling, and the three
+mutation kinds (random-walk Metropolis, preconditioned MALA and HMC);
+PyTorch port of ``smc_tpu.smc.kernels``.
 
 Every function takes and returns tensors on the run's device and never waits
 for it, except the mutation loop, which reads one flag per sweep after the
 first. Nothing here copies from the host to the device, so every piece can
-be captured in a CUDA graph (smc/graphs.py). On CUDA the
+be captured in a CUDA graph (smc/graphs.py), the gradient kinds' backward
+passes included. On CUDA the
 gamma ladder runs on ``csrc/ladder.cu``, the ancestor build on
 ``csrc/merge.cu``, and the likelihood wherever the model puts it.
 
@@ -18,7 +20,7 @@ package gets the same from ``jax.vmap`` of the single-population functions.
 from __future__ import annotations
 
 import math
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -368,43 +370,112 @@ class MutationCarry(NamedTuple):
     particles: torch.Tensor  # (N, d)
     log_lik: torch.Tensor   # (N,)
     log_prior: torch.Tensor  # (N,)
-    grad: torch.Tensor      # () zero for rwm
+    grad: torch.Tensor      # (N, d) likelihood gradients; () zero for rwm
     r_ac: torch.Tensor      # (N,) bool accepted-at-least-once
     mh_ratio: torch.Tensor  # () proposal step ratio (halved when stalled)
     done: torch.Tensor      # () bool early-stop latch
 
 
+def _method_of(loglik_fn) -> Optional[str]:
+    """The likelihood's ``method`` (a model's, or the one a data likelihood
+    carries), for error messages."""
+    owner = getattr(loglik_fn, "__self__", loglik_fn)
+    return getattr(owner, "method", None)
+
+
+def check_differentiable(ll: torch.Tensor, loglik_fn) -> None:
+    """Raise ValueError unless ``ll`` (``loglik_fn``'s output on a theta
+    that requires grad) carries an autograd graph."""
+    if not ll.requires_grad:
+        method = _method_of(loglik_fn)
+        raise ValueError(
+            "the gradient mutations (mala, hmc) and MAP need a "
+            "differentiable log-likelihood, and "
+            + (f"method {method!r}" if method else "this one")
+            + " carries no autograd graph: the CUDA likelihood kernels have "
+            "no backward, as the JAX package's Pallas kernels have none; "
+            "use method='exact' or 'rk4'")
+
+
+def _make_ll_and_grad(loglik_fn):
+    """``th -> (log_lik, grad)``: every particle's log-likelihood and its
+    gradient from ONE backward pass of the row sum (rows are independent,
+    so the gradient of the sum is each particle's own gradient).
+
+    -inf rows get a zero cotangent and non-finite gradients are set to 0:
+    a diverged row falls back to a gradient-free proposal and stays under
+    the exact accept test. The pass runs under an explicit
+    ``torch.enable_grad()`` on a copy of ``th`` that requires grad, so a
+    caller under ``no_grad`` gets it too; the results carry no graph.
+
+    A likelihood whose output carries no autograd graph raises: the CUDA
+    kernels (``pallas_exact``, ``pallas``) have no backward, as the JAX
+    package's Pallas kernels have none (there ``jax.grad`` fails to
+    linearize). The plain path is never taken in their place.
+    """
+    def ll_and_grad(th):
+        with torch.enable_grad():
+            t = th.detach().requires_grad_(True)
+            ll, _ = loglik_fn(t)
+            check_differentiable(ll, loglik_fn)
+            total = torch.sum(torch.where(torch.isfinite(ll), ll, 0.0))
+            (g,) = torch.autograd.grad(total, t)
+        return ll.detach(), torch.where(torch.isfinite(g), g, 0.0)
+    return ll_and_grad
+
+
+def _accept_into(accept, prop, lk2, lp2, g2, parts, lk1, lp1, g1):
+    """The accepted rows' proposal, log-likelihood, log-prior (and, for the
+    gradient kinds, gradient) over the current ones."""
+    parts = torch.where(accept[..., None], prop, parts)
+    lk1 = torch.where(accept, lk2, lk1)
+    lp1 = torch.where(accept, lp2, lp1)
+    if g2 is not None:
+        g1 = torch.where(accept[..., None], g2, g1)
+    return parts, lk1, lp1, g1, accept
+
+
 def make_mutation_parts(kind: str, loglik_fn, prior: Prior, cfg: SMCConfig):
     """Split one adaptive sweep into ``(init_fn, draw_fn, core_fn, admin_fn,
-    grad_fn)`` as the JAX package does; only ``"rwm"`` is ported
-    (``grad_fn`` is None for it).
+    grad_fn)`` as the JAX package does, for ``kind`` "rwm", "mala" or
+    "hmc" (``grad_fn`` is None for "rwm").
 
-    - ``init_fn(key, particles, log_lik) -> MutationCarry``;
-    - ``draw_fn(carry) -> (key, (chol,), (z, log_u))``: the per-sweep
-      proposal factor of the weighted empirical covariance, then the
-      sweep's draws, normals first;
+    - ``init_fn(key, particles, log_lik, g0=None) -> MutationCarry``: no
+      likelihood evaluation for "rwm"; the gradient kinds compute the
+      initial gradient (one forward and backward pass) unless ``g0`` is
+      given (the block driver computes it in slabs with ``grad_fn``);
+    - ``draw_fn(carry) -> (key, aux_g, aux_r)``: the per-sweep factors of
+      the weighted empirical covariance (``(chol,)``; MALA ``(cov, chol,
+      linv)``), then the sweep's draws ``(z, log_u)``, normals first;
     - ``core_fn(parts, lk1, lp1, g1, ratio, aux_g, aux_r, gamma)``:
-      propose, clip to the support, evaluate, accept;
+      propose, evaluate, accept. Every output row depends on its own input
+      rows and ``aux_g`` only, so the core may run on any slab of rows;
     - ``admin_fn(carry, key, parts, lk1, lp1, g1, accept, gamma)``: the
-      accepted-at-least-once set, the early stop, and step-ratio halving.
-    """
-    if kind in ("mala", "hmc"):
-        raise NotImplementedError(
-            f"mutation {kind!r} is not ported yet; only 'rwm' runs")
-    if kind != "rwm":
-        raise ValueError(f"unknown mutation kind {kind!r}")
+      accepted-at-least-once set, the early stop, and step-ratio halving;
+    - ``grad_fn(particles) -> (N, d)`` likelihood gradients.
 
-    def init_fn(key, particles, log_lik):
+    A sweep of "mala" takes one forward and backward pass, of "hmc"
+    ``cfg.hmc_leapfrog`` (``cfg.evals_per_sweep``).
+    """
+    if kind not in ("rwm", "mala", "hmc"):
+        raise ValueError(f"unknown mutation kind {kind!r}")
+    ll_and_grad = _make_ll_and_grad(loglik_fn)
+    grad_based = kind != "rwm"
+
+    def init_fn(key, particles, log_lik, g0=None):
         dev = particles.device
         pops = particles.shape[:-2]            # () or (D,)
 
         def per_pop(v, dtype):
             return torch.full(pops, v, dtype=dtype, device=dev)
+        if not grad_based:
+            g0 = torch.zeros((), dtype=particles.dtype, device=dev)
+        elif g0 is None:
+            g0 = ll_and_grad(particles)[1]
         return MutationCarry(
             j=per_pop(0, torch.int32), key=key,
             particles=particles, log_lik=log_lik,
-            log_prior=prior.log_pdf(particles),
-            grad=torch.zeros((), dtype=particles.dtype, device=dev),
+            log_prior=prior.log_pdf(particles), grad=g0,
             r_ac=torch.zeros(particles.shape[:-1], dtype=torch.bool,
                              device=dev),
             mh_ratio=per_pop(1, particles.dtype),
@@ -425,14 +496,23 @@ def make_mutation_parts(kind: str, loglik_fn, prior: Prior, cfg: SMCConfig):
 
     def draw_fn(c):
         shape = tuple(c.particles.shape)
-        cov_weight = cfg.cov_weight(shape[-1], c.particles.device).to(
+        d = shape[-1]
+        cov_weight = cfg.cov_weight(d, c.particles.device).to(
             c.particles.dtype)
-        chol = _cholesky_or_nan(_weighted_cov(c.particles, cov_weight))
+        cov = _weighted_cov(c.particles, cov_weight)
+        chol = _cholesky_or_nan(cov)
         z = c.key.normal(shape, c.particles.dtype)
         log_u = torch.log(c.key.uniform(shape[:-1], c.particles.dtype))
-        return c.key, (chol,), (z, log_u)
+        if kind != "mala":
+            return c.key, (chol,), (z, log_u)
+        # L^-1 once per sweep on the small (d, d): the reverse move's
+        # whitening is then a plain matmul per particle.
+        eye = torch.eye(d, dtype=chol.dtype, device=chol.device)
+        linv = torch.linalg.solve_triangular(chol, eye.expand_as(chol),
+                                             upper=False)
+        return c.key, (cov, chol, linv), (z, log_u)
 
-    def core_fn(parts, lk1, lp1, g1, ratio, aux_g, aux_r, gamma):
+    def rwm_core(parts, lk1, lp1, g1, ratio, aux_g, aux_r, gamma):
         (chol,) = aux_g
         z, log_u = aux_r
         prop = parts + (z @ chol.transpose(-1, -2)) * _over(ratio, parts)
@@ -447,23 +527,75 @@ def make_mutation_parts(kind: str, loglik_fn, prior: Prior, cfg: SMCConfig):
         # priors.
         log_acc = (lk2 - lk1) * _over(gamma, lk1) + (lp2 - lp1)
         accept = in_sup & (log_acc >= log_u) & torch.isfinite(lk2)
-        parts = torch.where(accept[..., None], prop_eval, parts)
-        lk1 = torch.where(accept, lk2, lk1)
-        lp1 = torch.where(accept, lp2, lp1)
-        return parts, lk1, lp1, g1, accept
+        return _accept_into(accept, prop_eval, lk2, lp2, None,
+                            parts, lk1, lp1, g1)
 
-    return init_fn, draw_fn, core_fn, admin_fn, None
+    def mala_core(parts, lk1, lp1, g1, ratio, aux_g, aux_r, gamma):
+        # theta' = theta + (eps^2 / 2) gamma grad_ll(theta) @ S + eps z L^T
+        # with S = L L^T; the accept adds log q(theta | theta') -
+        # log q(theta' | theta), the forward term being -|z|^2 / 2.
+        cov, chol, linv = aux_g
+        z, log_u = aux_r
+        half_e2 = _over(0.5 * ratio * ratio * gamma, parts)
+        prop = (parts + half_e2 * (g1 @ cov)
+                + (z @ chol.transpose(-1, -2)) * _over(ratio, parts))
+        in_sup = prior.in_support(prop)
+        prop_eval = torch.where(in_sup[..., None], prop, parts)
+        lk2, g2 = ll_and_grad(prop_eval)
+        lp2 = prior.log_pdf(prop_eval)
+        # The reverse move's residual, whitened by L^-1.
+        u = parts - prop_eval - half_e2 * (g2 @ cov)
+        v = u @ linv.transpose(-1, -2)
+        log_q_rev = (-0.5 * torch.sum(v * v, dim=-1)
+                     / _over(ratio * ratio, lk1))
+        log_q_fwd = -0.5 * torch.sum(z * z, dim=-1)
+        log_acc = ((lk2 - lk1) * _over(gamma, lk1) + (lp2 - lp1)
+                   + log_q_rev - log_q_fwd)
+        accept = in_sup & (log_acc >= log_u) & torch.isfinite(lk2)
+        return _accept_into(accept, prop_eval, lk2, lp2, g2,
+                            parts, lk1, lp1, g1)
+
+    def hmc_core(parts, lk1, lp1, g1, eps, aux_g, aux_r, gamma):
+        # Leapfrog in whitened coordinates (identity mass; S = L L^T):
+        # half kick, (n_leap - 1) x (drift, full kick), drift, half kick.
+        # Each drift is one likelihood and gradient; the accept takes the
+        # full target ratio and the kinetic-energy difference.
+        (chol,) = aux_g
+        z, log_u = aux_r
+        n_leap = cfg.hmc_leapfrog
+        p = z + _over(0.5 * eps * gamma, parts) * (g1 @ chol)
+        th, lk2, g2 = parts, lk1, g1
+        for k in range(n_leap):
+            th = th + _over(eps, parts) * (p @ chol.transpose(-1, -2))
+            lk2, g2 = ll_and_grad(th)
+            kick = _over(gamma, parts) * (g2 @ chol)
+            w = 1.0 if k < n_leap - 1 else 0.5
+            p = p + _over(w * eps, parts) * kick
+        in_sup = prior.in_support(th)
+        lp2 = prior.log_pdf(th)
+        log_acc = ((lk2 - lk1) * _over(gamma, lk1) + (lp2 - lp1)
+                   - 0.5 * (torch.sum(p * p, dim=-1)
+                            - torch.sum(z * z, dim=-1)))
+        accept = (in_sup & (log_acc >= log_u) & torch.isfinite(lk2)
+                  & torch.isfinite(th).all(dim=-1))
+        return _accept_into(accept, th, lk2, lp2, g2, parts, lk1, lp1, g1)
+
+    core_fn = {"rwm": rwm_core, "mala": mala_core, "hmc": hmc_core}[kind]
+    grad_fn = (lambda p: ll_and_grad(p)[1]) if grad_based else None
+    return init_fn, draw_fn, core_fn, admin_fn, grad_fn
 
 
 def make_mutation_sweeper(kind: str, loglik_fn, prior: Prior,
                           cfg: SMCConfig):
     """``(init_fn, sweep_fn)``: ``sweep_fn(carry, gamma) -> carry`` runs ONE
-    sweep (draws, proposal, one likelihood evaluation, accept, controller
-    update), composed from :func:`make_mutation_parts`.
+    sweep (draws, proposal, ``cfg.evals_per_sweep`` likelihood
+    evaluations, accept, controller update), composed from
+    :func:`make_mutation_parts`.
 
     For an ensemble, ``sweep_fn(carry, gamma, active)`` takes a bool (D,)
     mask: every population is swept (one batched likelihood), and those
-    with ``active[p]`` False keep their old carry."""
+    with ``active[p]`` False keep their old carry (their gradients
+    too)."""
     init_fn, draw_fn, core_fn, admin_fn, _ = make_mutation_parts(
         kind, loglik_fn, prior, cfg)
 
@@ -476,7 +608,8 @@ def make_mutation_sweeper(kind: str, loglik_fn, prior: Prior,
         if active is None:
             return new
         return MutationCarry(*(
-            n if f in ("key", "grad") else torch.where(_over(active, n), n, o)
+            n if f == "key" or n.dim() == 0
+            else torch.where(_over(active, n), n, o)
             for f, o, n in zip(MutationCarry._fields, c, new)))
 
     return init_fn, sweep_fn
@@ -530,6 +663,19 @@ def mutation_result(c: MutationCarry) -> MutationResult:
                           torch.sum(c.r_ac, dim=-1), c.mh_ratio)
 
 
+def _run_sweeps(kind: str, key, particles, log_lik, gamma, loglik_fn,
+                prior: Prior, cfg: SMCConfig) -> MutationResult:
+    """The adaptive sweep loop of ``kind``: up to ``mh_steps`` sweeps
+    (``mh_steps_final`` at gamma == 1), one host read after each sweep but
+    the first."""
+    n_mh = sweep_limit(gamma, cfg)
+    mut_init, mut_sweep = make_sweep_loop_pieces(kind, loglik_fn, prior,
+                                                 cfg)
+    c = sweep_until_done(*mut_init(key, particles, log_lik, gamma, n_mh),
+                         lambda c: mut_sweep(c, gamma, n_mh))
+    return mutation_result(c)
+
+
 def mh_mutation(key, particles: torch.Tensor, log_lik: torch.Tensor,
                 gamma: torch.Tensor,
                 loglik_fn: Callable[[torch.Tensor], tuple],
@@ -542,20 +688,49 @@ def mh_mutation(key, particles: torch.Tensor, log_lik: torch.Tensor,
     out-of-support proposals are replaced by the current particle; accept
     iff (lk2 - lk1) * gamma + (lp2 - lp1) >= log U. ``key`` is the run's
     ``Draws``."""
-    n_mh = sweep_limit(gamma, cfg)
-    mut_init, mut_sweep = make_sweep_loop_pieces("rwm", loglik_fn, prior,
-                                                 cfg)
-    c = sweep_until_done(*mut_init(key, particles, log_lik, gamma, n_mh),
-                         lambda c: mut_sweep(c, gamma, n_mh))
-    return mutation_result(c)
+    return _run_sweeps("rwm", key, particles, log_lik, gamma, loglik_fn,
+                       prior, cfg)
+
+
+def mala_mutation(key, particles: torch.Tensor, log_lik: torch.Tensor,
+                  gamma: torch.Tensor,
+                  loglik_fn: Callable[[torch.Tensor], tuple],
+                  prior: Prior, cfg: SMCConfig) -> MutationResult:
+    """Preconditioned Metropolis-adjusted Langevin sweeps, with the
+    controller of :func:`mh_mutation`. With S = cov(particles) *
+    cov_weight = L L^T and step ratio eps the proposal is
+
+        theta' = theta + (eps^2 / 2) gamma grad_ll(theta) @ S + eps z @ L^T
+
+    and the accept adds log q(theta | theta') - log q(theta' | theta) to
+    (lk2 - lk1) gamma + (lp2 - lp1). Needs a differentiable ``loglik_fn``
+    (torch.autograd); each sweep takes one forward and backward pass."""
+    return _run_sweeps("mala", key, particles, log_lik, gamma, loglik_fn,
+                       prior, cfg)
+
+
+def hmc_mutation(key, particles: torch.Tensor, log_lik: torch.Tensor,
+                 gamma: torch.Tensor,
+                 loglik_fn: Callable[[torch.Tensor], tuple],
+                 prior: Prior, cfg: SMCConfig) -> MutationResult:
+    """Preconditioned Hamiltonian sweeps, with the controller of
+    :func:`mh_mutation`: each proposal is ``cfg.hmc_leapfrog`` leapfrog
+    steps of the tempered-likelihood dynamics in whitened coordinates
+    (positions move by eps p @ L^T, kicks are eps gamma grad @ L), accepted
+    on the full target ratio minus the kinetic-energy difference; an
+    out-of-support or non-finite end point is rejected. Each sweep takes
+    ``hmc_leapfrog`` forward and backward passes."""
+    return _run_sweeps("hmc", key, particles, log_lik, gamma, loglik_fn,
+                       prior, cfg)
+
+
+_MUTATION_KERNELS = {"rwm": mh_mutation, "mala": mala_mutation,
+                     "hmc": hmc_mutation}
 
 
 def mutate(key, particles: torch.Tensor, log_lik: torch.Tensor,
            gamma: torch.Tensor, loglik_fn, prior: Prior,
            cfg: SMCConfig) -> MutationResult:
-    """Dispatch to the configured mutation kernel (cfg.mutation); only
-    ``"rwm"`` is ported, ``"mala"``/``"hmc"`` raise NotImplementedError."""
-    if cfg.mutation != "rwm":
-        raise NotImplementedError(
-            f"mutation {cfg.mutation!r} is not ported yet; only 'rwm' runs")
-    return mh_mutation(key, particles, log_lik, gamma, loglik_fn, prior, cfg)
+    """Dispatch to the configured mutation kernel (cfg.mutation)."""
+    return _MUTATION_KERNELS[cfg.mutation](key, particles, log_lik, gamma,
+                                           loglik_fn, prior, cfg)

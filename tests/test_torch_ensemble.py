@@ -320,14 +320,91 @@ def test_inactive_populations_keep_their_carry(data):
     assert not torch.equal(c1.particles[2], c0.particles[2])
 
 
+def _grad_rows(got, want):
+    """|got - want| within 1e-4 of each row's largest |want|."""
+    row = np.abs(want).max(-1, keepdims=True)
+    assert (np.abs(got - want) <= 1e-4 * row).all()
+
+
+def test_batched_ll_and_grad_equals_each_population(data):
+    """``_make_ll_and_grad`` of the (D, N) data likelihood (one backward
+    pass over every population) against each population's own call and
+    against jax.vmap of the JAX package's: the same log-likelihoods and
+    -inf rows (sigma <= 0, gradient 0), gradients within 1e-4 of each row's
+    largest |g|. A gradient taken from another population's rows fails."""
+    ts, obs, s0 = data
+    theta = _cloud(3)
+    theta[:, ::9, 2] *= -1.0                   # sigma <= 0: -inf rows
+    prior, loglik, tobs = _port_problem(data)
+    ll, g = tk._make_ll_and_grad(lambda th: loglik(th, tobs))(_t(theta))
+    assert ll.shape == (D, N) and g.shape == (D, N, DIM)
+    inf = torch.isinf(ll)
+    assert int(inf.sum()) == D * len(range(0, N, 9))
+    assert bool((g[inf] == 0).all()) and not bool(torch.isnan(g).any())
+    j_ll = j_data_loglik(jnp.asarray(ts), jnp.asarray(s0))
+    jl, jg = (np.asarray(a) for a in jax.jit(jax.vmap(
+        lambda th, o: jk._make_ll_and_grad(lambda t: j_ll(t, o))(th)))(
+            jnp.asarray(theta), jnp.asarray(obs)))
+    np.testing.assert_array_equal(np.isinf(jl), inf.numpy())
+    keep = ~inf.numpy()
+    for p in range(D):
+        lp, gp = tk._make_ll_and_grad(
+            lambda th: loglik(th[None], tobs[p:p + 1]))(_t(theta[p]))
+        assert torch.equal(lp[0], ll[p])
+        k = keep[p]
+        _grad_rows(g[p].numpy()[k], gp.numpy()[k])
+        assert_ll_close(ll[p].numpy()[k], jl[p][k], theta[p][k], 6, 40, 2e-5)
+        _grad_rows(g[p].numpy()[k], jg[p][k])
+
+
+@pytest.mark.parametrize("kind", ["mala", "hmc"])
+def test_inactive_populations_keep_their_gradients(data, kind):
+    """The gradient kinds' sweep with an active mask: the masked
+    population's particles, log-likelihoods, gradients, counter and
+    accepted set stay as they were; the others move, and every carried
+    gradient is its own population's gradient at its particles (within
+    1e-4 of each row's largest |g|)."""
+    prior, loglik, tobs = _port_problem(data)
+    parts = _t(_cloud(2))
+    ll = loglik(parts, tobs)[0]
+    fn = lambda th: loglik(th, tobs)          # noqa: E731
+    init, sweep = tk.make_mutation_sweeper(
+        kind, fn, prior, SMCConfig(n_particles=N, mutation=kind,
+                                   hmc_leapfrog=3))
+    c0 = init(TorchDraws(0, "cpu"), parts, ll)
+    active = torch.tensor([True, False, True])
+    # gamma 1e-3: at 0.1 the gradients of a cloud this wide reject every
+    # proposal.
+    c1 = sweep(c0, torch.full((D,), 1e-3), active)
+    assert c1.j.tolist() == [1, 0, 1]
+    for f in ("particles", "log_lik", "grad"):
+        assert torch.equal(getattr(c1, f)[1], getattr(c0, f)[1]), f
+    assert not bool(c1.r_ac[1].any())
+    for p in (0, 2):
+        assert bool(c1.r_ac[p].any())
+        assert not torch.equal(c1.particles[p], c0.particles[p])
+        assert not torch.equal(c1.grad[p], c0.grad[p])
+    for c in (c0, c1):
+        want = tk._make_ll_and_grad(fn)(c.particles)[1]
+        for p in range(D):
+            _grad_rows(c.grad[p].numpy(), want[p].numpy())
+
+
 # ---- the whole ensemble ----------------------------------------------------
 
-@pytest.mark.parametrize("method", ["pallas_exact", "exact"])
-def test_ensemble_equals_single_runs_with_the_same_draws(data, method):
+@pytest.mark.parametrize("method,mutation", [
+    pytest.param("pallas_exact", "rwm", id="pallas_exact"),
+    pytest.param("exact", "rwm", id="exact"),
+    pytest.param("exact", "mala", id="exact-mala")])
+def test_ensemble_equals_single_runs_with_the_same_draws(data, method,
+                                                         mutation):
     """What vmap guarantees the JAX package, shown for the written-out
     axis: population p of the ensemble ends where ``run_smc_on_device``
     ends for p alone, fed p's rows of the ensemble's draws (keyed by step
-    and sweep, since a finished population stops consuming sweeps).
+    and sweep, since a finished population stops consuming sweeps). For
+    MALA (the same draws; a population whose sweeps are done keeps its
+    gradients with its particles) the runs are held statistically, for the
+    reason :func:`_assert_same_posterior` gives.
 
     Tolerance: the elementwise arithmetic is the same bits per row; the
     reductions over the particle axis (ladder sums, weight sum, mean,
@@ -336,7 +413,7 @@ def test_ensemble_equals_single_runs_with_the_same_draws(data, method):
     particles within 1e-5 and log-evidence within 1e-4."""
     ts, obs, s0 = data
     prior, loglik, tobs = _port_problem(data, method)
-    cfg = SMCConfig(n_particles=N)
+    cfg = SMCConfig(n_particles=N, mutation=mutation)
     rec = RecordingDraws(TorchDraws(5, "cpu"))
     ens = run_ensemble_on_device(rec, prior, loglik, tobs, D, cfg)
     assert (ens.gamma == 1.0).all()
@@ -347,6 +424,9 @@ def test_ensemble_equals_single_runs_with_the_same_draws(data, method):
                                         method=method, device="cpu")
         one = run_smc_on_device(m, cfg, PopulationReplay(rec.entries, p))
         assert float(one.gamma) == float(ens.gamma[p]) == 1.0
+        if mutation == "mala":
+            _assert_same_posterior(one, ens, p)
+            continue
         for f in ("step", "n_mh", "accepted", "n_gamma_reductions"):
             assert int(getattr(one, f)) == int(getattr(ens, f)[p]), f
         assert float(one.total_lik_evals) == float(ens.total_lik_evals[p])
@@ -359,6 +439,22 @@ def test_ensemble_equals_single_runs_with_the_same_draws(data, method):
                                    atol=1e-4)
         np.testing.assert_allclose(float(one.ess), float(ens.ess[p]),
                                    rtol=1e-5)
+
+
+def _assert_same_posterior(one, ens, p):
+    """MALA's case of the test above. The likelihood's rows are the same
+    bits in the batched (D N) call and the single one, but the gradient's
+    are not: autograd's backward through the exact likelihood adds the
+    contributions over the broadcast time and dataset axes in another order
+    for the (D N) batch (about 170 of 256 rows differ in their last bits),
+    a proposal near its accept margin then flips, and the population's two
+    runs part like two seeds. Held as two runs of one posterior: steps
+    within 2, means within half a posterior sd, log-evidence within 2.5
+    (one run's spread at N = 256, tests/test_torch_smc.py)."""
+    assert abs(int(one.step) - int(ens.step[p])) <= 2
+    a, b = one.particles.double(), ens.particles[p].double()
+    assert bool(((a.mean(0) - b.mean(0)).abs() < 0.5 * b.std(0)).all())
+    assert abs(float(one.log_evidence) - float(ens.log_evidence[p])) < 2.5
 
 
 def test_ensemble_matches_jax_ensemble_statistically(data):

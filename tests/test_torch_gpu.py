@@ -8,8 +8,11 @@ under the ensemble's population axis (unaligned rows, K = 1 and 200, the
 merge's zero-count runs where it cuts its pieces) and replayed in one
 captured graph, each resampling scheme's counts and run, an ensemble on
 the card against the same ensemble on the CPU, and the graphed runs
-(captured CUDA graphs of the step's pieces) against the eager composition
-of the same pieces, bit for bit, with their launch accounting.
+(captured CUDA graphs of the step's pieces; for MALA and HMC with their
+backward passes) against the eager composition of the same pieces, bit for
+bit, with their launch accounting; block granularity against sweep
+granularity; the autograd gradients and a MAP estimate on the card
+against the CPU's.
 
 Every test here needs an NVIDIA GPU with nvcc and skips without one (the
 ``cuda`` fixture decides, inside the test). This file imports neither JAX
@@ -644,9 +647,11 @@ _STATE_FIELDS = ("particles", "log_lik", "gamma", "step", "ess",
 
 def _graph_case(case, cuda):
     """(graphed run, eager run) of one path, each a function of a seed."""
-    if case == "mm":
-        m = MichaelisMentenModel.default(method="pallas_exact", device=cuda)
-        cfg = SMCConfig(n_particles=4096)
+    if case in ("mm", "mm_mala", "mm_hmc"):
+        kind = "rwm" if case == "mm" else case[3:]
+        m = MichaelisMentenModel.default(
+            method="pallas_exact" if kind == "rwm" else "exact", device=cuda)
+        cfg = SMCConfig(n_particles=4096, mutation=kind, hmc_leapfrog=3)
         return (make_full_run_on_device(m, cfg),
                 lambda seed: _eager_run(m, cfg, seed))
     if case == "methanation":
@@ -661,22 +666,26 @@ def _graph_case(case, cuda):
     from smc_tpu_torch.models.michaelis_menten import (
         generate_mm_pseudo_data, make_mm_data_loglik)
     ts, obs0, s0 = generate_mm_pseudo_data()
-    d, cfg = 3, SMCConfig(n_particles=1024)
+    d = 3
+    cfg = SMCConfig(n_particles=1024, mutation="mala"
+                    if case == "ensemble_mala" else "rwm")
     gen = torch.Generator().manual_seed(5)
     obs = (torch.tensor(obs0)[None] + 0.02 * torch.randn(
         (d,) + obs0.shape, generator=gen)).to(cuda)
     prior = Prior.uniform([0.0] * 3, [10.0] * 3, device=cuda)
     ll = make_mm_data_loglik(torch.tensor(ts, device=cuda),
                              torch.tensor(s0, device=cuda),
-                             method="pallas" if case == "ensemble_pallas"
-                             else "pallas_exact")
+                             method={"ensemble_pallas": "pallas",
+                                     "ensemble_mala": "exact"}.get(
+                                         case, "pallas_exact"))
     run = make_ensemble_run(prior, ll, d, cfg)
     return (lambda seed: run(seed, obs),
             lambda seed: _eager_ensemble(prior, ll, d, cfg, seed, obs))
 
 
 @pytest.mark.parametrize("case", ["mm", "ensemble", "ensemble_pallas",
-                                  "methanation"])
+                                  "methanation", "mm_mala", "mm_hmc",
+                                  "ensemble_mala"])
 def test_graphed_run_is_bit_equal_to_the_eager_composition(cuda, case):
     """The graphed entry point (each piece of a step one CUDA graph replay)
     and the eager composition of the same pieces give the same final state,
@@ -769,3 +778,85 @@ def test_batched_mm_rk4_kernel(cuda, d):
     assert bool(((got[fin] - want[fin]).abs() <= 5e-5 * scale).all())
     assert torch.equal(mm.mm_loglik_pallas_batched(theta, obs, s0, m.dt, 4),
                        got)
+
+
+@pytest.mark.parametrize("kind,method", [("rwm", "pallas_exact"),
+                                         ("mala", "exact"), ("hmc", "exact")])
+def test_block_is_bit_equal_to_sweep_on_the_card(cuda, kind, method):
+    """run_smc(granularity="block") against "sweep" from the same seed: a
+    slab's core graph reads views of the full-N buffers, and every row's
+    arithmetic is the full-N core's, so the final states are equal bit for
+    bit; each core graph replays once per sweep and slab."""
+    from smc_tpu_torch import run_smc
+    from smc_tpu_torch.smc import graphs
+    m = MichaelisMentenModel.default(method=method, device=cuda)
+    cfg = SMCConfig(n_particles=4096, mutation=kind, hmc_leapfrog=2)
+    sweep = run_smc(m, cfg, 3, verbose=False, granularity="sweep")
+    graphs.reset_stats()
+    block = run_smc(m, cfg.replace(block_particles=1024), 3, verbose=False,
+                    granularity="block")
+    for f in _STATE_FIELDS:
+        assert torch.equal(getattr(block, f), getattr(sweep, f)), f
+    sweeps = round(float(block.total_lik_evals - 4096)
+                   / (4096 * cfg.evals_per_sweep))
+    assert graphs.stats["host_reads"] == int(block.step) + sweeps + 1
+    grads = 4 if kind != "rwm" else 0
+    # per step: prep, grads, mut_init, finish; per sweep: draw, 4 cores,
+    # admin
+    assert graphs.stats["replays"] == (int(block.step) * (3 + grads)
+                                       + sweeps * 6)
+
+
+def test_autograd_gradient_on_the_card_matches_the_cpu(cuda):
+    """_make_ll_and_grad of the MM exact likelihood on the card against the
+    CPU on the same particles: the same -inf rows and zero gradients there,
+    log-likelihoods within 1e-5 of the larger ll term, gradients within
+    1e-3 of each row's largest |g| (elementwise fp32 on two devices; the
+    backward of Lambert W's Halley steps compounds the last bits)."""
+    from smc_tpu_torch.smc.kernels import _make_ll_and_grad
+    g = torch.Generator().manual_seed(2)
+    theta = (torch.tensor([1.2, 0.5, 0.02]) + torch.randn(
+        (4096, 3), generator=g) * torch.tensor([0.3, 0.3, 0.01])).abs()
+    theta[::17, 2] = -0.01
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        m = MichaelisMentenModel.default(method="exact", device=dev)
+        out[dev.type] = _make_ll_and_grad(m.log_likelihood)(theta.to(dev))
+    (lg, gg), (lc, gc) = out["cuda"], out["cpu"]
+    lg, gg = lg.cpu(), gg.cpu()
+    assert torch.equal(torch.isinf(lg), torch.isinf(lc))
+    assert bool((gc[torch.isinf(lc)] == 0).all())
+    assert bool((gg[torch.isinf(lg)] == 0).all())
+    fin = torch.isfinite(lc)
+    sigma = theta[fin, 2].clamp_min(1e-12)
+    t1 = -120.0 * (math.log(2 * math.pi) + 2 * torch.log(sigma))
+    scale = torch.maximum(t1.abs(), (t1 - lc[fin]).abs())
+    assert bool(((lg[fin] - lc[fin]).abs() <= 1e-5 * scale).all())
+    row = gc[fin].abs().amax(1, keepdim=True)
+    assert bool(((gg[fin] - gc[fin]).abs() <= 1e-3 * row).all())
+
+
+def test_gradient_kinds_refuse_the_kernels_on_the_card(cuda):
+    """A gradient kind on a CUDA likelihood raises, with no fallback."""
+    from smc_tpu_torch import run_smc
+    for method in ("pallas_exact", "pallas"):
+        m = MichaelisMentenModel.default(method=method, device=cuda)
+        with pytest.raises(ValueError, match="no backward"):
+            run_smc(m, SMCConfig(n_particles=256, mutation="mala"), 0,
+                    verbose=False)
+
+
+def test_map_on_the_card_matches_the_cpu(cuda):
+    """map_estimate from the same starts (a CPU generator's prior draws) on
+    the card and on the CPU: the best start's theta within 0.02 and its
+    log-posterior within 0.05 (each step one CUDA graph replay on the card,
+    eager on the CPU). Starts that end in the flat region far from the fit
+    may part by more: there the last bits steer Adam."""
+    from smc_tpu_torch import map_estimate
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        m = MichaelisMentenModel.default(method="exact", device=dev)
+        out[dev.type] = map_estimate(m, _CpuDrawsOn(2, dev), n_starts=8)
+    g, c = out["cuda"], out["cpu"]
+    assert bool(((g.theta.cpu() - c.theta).abs() < 0.02).all())
+    assert abs(float(g.log_post) - float(c.log_post)) < 0.05

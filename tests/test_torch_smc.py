@@ -205,14 +205,28 @@ def test_degenerate_covariance_rejects_instead_of_nan(models):
 
 
 def test_unported_options_raise(models):
+    """What still refuses: a gradient kind on a CUDA kernel's likelihood
+    (ValueError: the kernels have no backward), MM ``method="dopri5"``
+    (ROADMAP Queue 1 item 11) and the methanation likelihood under a
+    gradient kind (item 8), each NotImplementedError."""
+    from smc_tpu_torch.models import methanation as TM
+    from smc_tpu_torch.models.michaelis_menten import MichaelisMentenModel
     _, tm = models
     cfg = SMCConfig(n_particles=16, mutation="mala")
     x = tm.prior.sample(convert.TorchDraws(0, "cpu"), 16)
-    with pytest.raises(NotImplementedError):
-        mutate(None, x, tm.log_likelihood(x)[0], torch.tensor(0.5),
-               tm.log_likelihood, tm.prior, cfg)
-    with pytest.raises(NotImplementedError):
-        run_smc(tm, SMCConfig(n_particles=16), 0, granularity="block")
+    pe = MichaelisMentenModel.default(method="pallas_exact", device="cpu")
+    with pytest.raises(ValueError, match="no backward"):
+        mutate(None, x, pe.log_likelihood(x)[0], torch.tensor(0.5),
+               pe.log_likelihood, pe.prior, cfg)
+    with pytest.raises(NotImplementedError, match="dopri5"):
+        MichaelisMentenModel.default(method="dopri5", device="cpu")
+    meth = convert.methanation_model_from_numpy(
+        TM.condition_table_numpy(2, nx=11), np.zeros((5, 2), np.float32),
+        TM.methanation_prior(device="cpu"), nx=11, device="cpu")
+    xm = meth.prior.sample(convert.TorchDraws(0, "cpu"), 16)
+    with pytest.raises(NotImplementedError, match="item 8"):
+        mutate(None, xm, torch.zeros(16), torch.tensor(0.5),
+               meth.log_likelihood, meth.prior, cfg)
 
 
 def test_log_evidence_and_posterior_match_analytic_conjugate():

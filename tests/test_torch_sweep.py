@@ -8,8 +8,8 @@ is held against the JAX package's on the same state, with the JAX draws
 replayed.
 
 Both granularities run the same pieces, so unlike the JAX package's
-sweep-against-fused test the states are bit-equal for every mutation kind
-the port has (RWM)."""
+sweep-against-fused test the states are bit-equal (for MALA and HMC too,
+tests/test_torch_mala_hmc.py)."""
 import dataclasses
 
 import jax
@@ -252,11 +252,17 @@ def test_stop_requested_between_sweeps(model, tmp_path):
 
 
 def test_unknown_and_unported_granularity(model):
+    """An unknown granularity raises; "block" (no longer unported) runs and
+    gives the sweep granularity's state (tests/test_torch_block.py holds
+    it further)."""
     cfg = SMCConfig(n_particles=64)
     with pytest.raises(ValueError, match="granularity"):
         run_smc(model, cfg, 0, verbose=False, granularity="bogus")
-    with pytest.raises(NotImplementedError):
-        run_smc(model, cfg, 0, verbose=False, granularity="block")
+    block = run_smc(model, cfg.replace(block_particles=16), 0, verbose=False,
+                    granularity="block")
+    assert float(block.gamma) == 1.0
+    assert_same_state(block, run_smc(model, cfg, 0, verbose=False,
+                                     granularity="sweep"))
 
 
 def test_graphs_refuse_draws_they_cannot_replay():
