@@ -18,7 +18,10 @@ and the SBC harness on it (``smc/sbc.py``) run D populations through the
 same kernels, one launch for all. On CUDA the run entry points replay the
 SMC step's pieces as captured CUDA graphs (``smc/graphs.py``), backward
 passes included, at step, sweep or block granularity; on the CPU the same
-pieces run eagerly.
+pieces run eagerly. Runs checkpoint and resume bit for bit (``io/``:
+``.npz``, the native runtime's ``.smck``, ``.smcd`` in row slabs; the
+JAX package's files load too), and user ODE and index-1 DAE models run
+through ``models/generic.py`` (``rk4``, ``dopri5``, implicit ``bdf2``).
 """
 import torch
 

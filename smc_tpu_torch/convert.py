@@ -3,9 +3,24 @@ results.
 
 This system has no weights. What crosses between the JAX package and this
 one is a model's data and prior and a sampler's state, as NumPy arrays;
-nothing here imports JAX. A JAX state's ``key`` (threefry key data) cannot
-drive a ``torch.Generator``: it seeds a fresh ``TorchDraws`` instead, or the
-caller passes the ``Draws`` to continue with.
+nothing here imports JAX.
+
+The ``key`` field. The JAX state holds threefry key data (uint32, (2,) or
+(D, 2) for an ensemble); the port's holds a ``TorchDraws``, whose
+``torch.Generator`` state is uint8 bytes (16 on CUDA, 5,056 on the CPU).
+A key array is read by one rule (:func:`draws_from_key`):
+
+- uint8 bytes (:func:`state_to_numpy`) restore the generator exactly;
+- uint32 words that open with :data:`KEY_TAG` (:func:`key_to_words`, what
+  the checkpoint files hold, since the ``.smck`` container has no uint8
+  code) restore it exactly too: ``[KEY_TAG, n_bytes, the n_bytes packed
+  little-endian into words, zero-padded]``;
+- anything else (JAX key data) cannot drive a ``torch.Generator``: its
+  bytes seed a fresh ``TorchDraws``, or the caller passes the ``Draws`` to
+  continue with.
+
+A JAX key is never mistaken for a generator state: it has two words per
+row, and a tagged key has at least three.
 """
 from __future__ import annotations
 
@@ -16,6 +31,7 @@ import numpy as np
 import torch
 
 from smc_tpu_torch.config import resolve_device
+from smc_tpu_torch.models.generic import ODEModel
 from smc_tpu_torch.models.methanation import (EST_DEFAULT, Conditions,
                                               MethanationModel)
 from smc_tpu_torch.models.michaelis_menten import MichaelisMentenModel
@@ -76,6 +92,27 @@ def methanation_model_from_numpy(cond: Mapping, obs, prior,
         prior=_as_prior(prior, dev), est_idx=tuple(est_idx), **solver_kw)
 
 
+def ode_model_from_numpy(rhs, param_names, obs, ts, y0, prior,
+                         device="cuda", **settings) -> ODEModel:
+    """A generic ODE model from obs (n_series, T), ts (T,), y0 (state_dim,
+    n_series) and a prior (a port ``Prior`` or a mapping of the five prior
+    arrays), with the torch ``rhs`` (and ``observe``, ``jac`` in
+    ``settings``) written for the port. ``settings`` are the other
+    ``ODEModel`` fields as the JAX model holds them (method, substeps,
+    est_sigma, sigma_fixed, err_tol, alg_mask)."""
+    dev = resolve_device(device)
+
+    def f32(a):
+        return torch.tensor(np.asarray(a, np.float32), device=dev)
+    if "err_tol" in settings:
+        settings["err_tol"] = float(settings["err_tol"])
+    if settings.get("alg_mask") is not None:
+        settings["alg_mask"] = tuple(bool(a) for a in settings["alg_mask"])
+    return ODEModel(rhs=rhs, param_names=tuple(param_names), obs=f32(obs),
+                    ts=f32(ts), y0=f32(y0), prior=_as_prior(prior, dev),
+                    **settings)
+
+
 def banana_model_from_numpy(prior, a: float = 1.0, b: float = 20.0,
                             scale0: float = 1.0, device="cuda"
                             ) -> BananaModel:
@@ -118,6 +155,48 @@ def map_result_from_numpy(d: Mapping, device="cuda") -> MAPResult:
                        for f in MAPResult._fields))
 
 
+# "TGEN", little-endian: the first word of a generator state as uint32 words.
+KEY_TAG = 0x4E454754
+
+
+def key_to_words(draws) -> np.ndarray:
+    """A ``TorchDraws``'s generator state as tagged uint32 words (the
+    module's rule), the form a checkpoint file keeps."""
+    if not isinstance(draws, TorchDraws):
+        raise TypeError("only a TorchDraws can be saved with a state, not "
+                        f"{type(draws).__name__}")
+    raw = draws.get_state()
+    body = np.concatenate([raw, np.zeros((-raw.size) % 4, np.uint8)])
+    return np.concatenate([np.asarray([KEY_TAG, raw.size], np.uint32),
+                           body.view("<u4").astype(np.uint32)])
+
+
+def _is_words(raw: np.ndarray) -> bool:
+    return (raw.dtype == np.uint32 and raw.ndim == 1 and raw.size > 2
+            and int(raw[0]) == KEY_TAG
+            and raw.size == 2 + -(-int(raw[1]) // 4))
+
+
+def draws_from_key(raw, device) -> TorchDraws:
+    """The run's ``TorchDraws`` from a key array, by the module's rule."""
+    dev = resolve_device(device)
+    raw = np.asarray(raw)
+    if raw.dtype == np.uint8 or _is_words(raw):
+        state = (raw if raw.dtype == np.uint8 else
+                 raw[2:].astype("<u4").view(np.uint8)[:int(raw[1])])
+        try:
+            return TorchDraws(0, dev).set_state(state)
+        except RuntimeError as e:
+            raise ValueError(
+                f"a generator state of {state.size} bytes does not fit a "
+                f"{dev.type} generator (a CUDA state is 16 bytes, a CPU "
+                "state 5,056): resume on the device type the state was "
+                "saved from") from e
+    seed = int.from_bytes(raw.tobytes()[:8].ljust(8, b"\0"),
+                          "little") & (2 ** 63 - 1)
+    return TorchDraws(seed, dev)
+
+
 def state_to_numpy(state: SMCState) -> dict:
     """The 13 fields as NumPy arrays; ``key`` becomes the generator state
     (uint8) of the state's ``TorchDraws``."""
@@ -129,29 +208,25 @@ def state_to_numpy(state: SMCState) -> dict:
 
 def state_from_numpy(d: Mapping, device="cuda",
                      draws: Optional[object] = None) -> SMCState:
-    """An SMCState from a mapping of the 13 fields (NumPy arrays or
-    scalars). ``key``: ``draws`` when given; else a uint8 generator state
-    (from :func:`state_to_numpy`) is restored, and any other array (such as
-    JAX key data) seeds a new ``TorchDraws`` from its bytes."""
+    """An SMCState from a mapping of the 13 fields (NumPy arrays, scalars,
+    or tensors, which are moved to ``device``). ``key``: ``draws`` when
+    given, else :func:`draws_from_key` of it (the module's rule)."""
     dev = resolve_device(device)
     missing = set(STATE_FIELDS) - set(d)
+    if draws is not None:
+        missing.discard("key")
     if missing:
         raise KeyError(f"state fields missing: {sorted(missing)}")
     if draws is None:
-        raw = np.asarray(d["key"])
-        if raw.dtype == np.uint8:
-            draws = TorchDraws(0, dev).set_state(raw)
-        else:
-            seed = int.from_bytes(raw.tobytes()[:8].ljust(8, b"\0"),
-                                  "little") & (2 ** 63 - 1)
-            draws = TorchDraws(seed, dev)
+        draws = draws_from_key(d["key"], dev)
     fields = {}
     for f in STATE_FIELDS:
         if f == "key":
             continue
-        a = np.asarray(d[f])
         dtype = torch.int32 if f in _INT_FIELDS else torch.float32
-        fields[f] = torch.tensor(a, dtype=dtype, device=dev)
+        a = d[f]
+        fields[f] = (a.to(dev, dtype) if isinstance(a, torch.Tensor) else
+                     torch.tensor(np.asarray(a), dtype=dtype, device=dev))
     return SMCState(key=draws, **fields)
 
 

@@ -25,9 +25,12 @@ code):
 
 What runs: the lanes-major engine (``ops/dae_fast.py``), the transient BDF2
 march with the lagged analytic Jacobian, and the block-Thomas kernels of
-``ops/thomas_cuda.py``. The per-system (blocked) engine, the steady march,
-the tangent-built Jacobians, the lane mesh and the CSV readers are not
-ported yet and raise ``NotImplementedError``.
+``ops/thomas_cuda.py``; the per-system engine (``engine="blocked"``,
+``ops/dae.py``: local Jacobians by ``torch.func.jacfwd``, block-Thomas
+through ``ops/linalg.py``), the oracle of the lanes-major one; the CSV
+readers and writer of the condition table. The steady march, the
+tangent-built Jacobians and the lane mesh are not ported yet and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -39,7 +42,7 @@ import numpy as np
 import torch
 
 from smc_tpu_torch.config import resolve_device
-from smc_tpu_torch.ops.dae import geometric_schedule
+from smc_tpu_torch.ops.dae import geometric_schedule, implicit_euler_dae
 from smc_tpu_torch.ops.dae_fast import bdf_march_bl, resolve_solver
 from smc_tpu_torch.priors import Prior
 from smc_tpu_torch.smc.diagnostics import FAILURE_SENTINEL
@@ -114,6 +117,12 @@ def rate_rCH4(T, Ca, Cb, Cc, Cd, kin):
     return rf - rr
 
 
+def gas_density(C, T, P0):
+    """Ideal-gas mixture density, kg/m^3. C: (..., 5)."""
+    mw = _row(MOLW, C.device, C.dtype)
+    return P0 / (R_GAS * T) * torch.sum(C * mw, -1) / torch.sum(C, -1) * 1e-3
+
+
 # ---------------------------------------------------------------------------
 # Condition table
 # ---------------------------------------------------------------------------
@@ -153,13 +162,94 @@ class Conditions:
             np.asarray(arrays[f], np.float32), device=dev)
             for f in _COND_FIELDS))
 
-    @staticmethod
-    def from_csv(*args, **kwargs):
-        raise NotImplementedError(
-            "the CSV readers are not ported yet (ROADMAP Queue 1 item 13: "
-            "I/O)")
+    # -- CSV interchange: a documented clean schema (header below), and an
+    #    adapter for the reference's 30-column positional information.csv.
+    #    The unit conversions run in float64 NumPy, as in the JAX package,
+    #    so both packages read a file to the same float32 bits. --
+    CSV_HEADER = ("T_jacket_C,T_in_C,P_gauge_MPa,f_h2_sccm,f_co2_sccm,"
+                  "f_ch4_sccm,f_h2o_sccm,f_ar_sccm,void_frac,length_mm")
 
-    from_reference_csv = from_csv
+    @staticmethod
+    def from_csv(path: str, nx: int = NX, device="cuda") -> "Conditions":
+        """Load operating conditions from CSV (header ``CSV_HEADER``), with
+        the reference loader's unit conversions: deg-C -> K, total sccm ->
+        inlet velocity at (T, P), gauge MPa -> absolute Pa, per-species
+        flow fractions -> inlet concentrations."""
+        raw = np.atleast_1d(np.genfromtxt(path, delimiter=",", names=True))
+        tj = raw["T_jacket_C"] + 273.0
+        t_in = raw["T_in_C"] + 273.0
+        p_abs = raw["P_gauge_MPa"] * 1e6 + 101325.0
+        flows = np.stack([raw["f_h2_sccm"], raw["f_co2_sccm"],
+                          raw["f_ch4_sccm"], raw["f_h2o_sccm"],
+                          raw["f_ar_sccm"]], axis=1)
+        tot = flows.sum(1)
+        u_in = tot * 1.667e-8 / AREA * (101325.0 * t_in) / (p_abs * 298.0)
+        c_in = (p_abs / (R_GAS * t_in))[:, None] * flows / tot[:, None]
+        dz = (raw["length_mm"] / 1000.0) / (nx - 1)
+        return Conditions.from_numpy(dict(
+            C_in=c_in, T_in=t_in, T_jacket=tj, u_in=u_in,
+            void=raw["void_frac"], dz=dz, P0=c_in.sum(1) * R_GAS * t_in),
+            device)
+
+    @staticmethod
+    def from_reference_csv(path: str, datalist=None, nx: int = NX,
+                           device="cuda"):
+        """Adapter for the reference's 30-column positional
+        ``information.csv`` layout: col 4 reactor length (mm), col 5
+        T_jacket (degC), col 6 void fraction, col 7 T_in (degC), col 9
+        total pressure (gauge MPa), cols 10, 11, 12, 14, 15 inlet flows
+        H2/CO2/CH4/H2O/Ar (sccm), col 16 total inlet flow, cols 17, 18, 19,
+        21, 22 measured outlet flows (sccm), cols 24, 25, 26, 28, 29 outlet
+        mole fractions. Empty cells are read as 0 (the loader's
+        ``fillna(0)``).
+
+        ``datalist`` selects experiment rows BY INDEX (the reference slices
+        ``iloc[datalist[0]:datalist[-1]+1]``, ignoring the interior of its
+        own list; the JAX package selects the listed rows, and so does
+        this).
+
+        Returns (Conditions, obs_flows (5, n), obs_molfractions (5, n)).
+        """
+        dev = resolve_device(device)
+        raw = np.genfromtxt(path, delimiter=",", skip_header=1,
+                            filling_values=0.0)
+        # genfromtxt still yields NaN for empty cells (filling_values only
+        # covers flagged missing tokens); the reference does fillna(0).
+        raw = np.nan_to_num(np.atleast_2d(raw), nan=0.0)
+        if datalist is not None:
+            raw = raw[np.asarray(datalist)]
+        t_in = raw[:, 7] + 273.0
+        p_abs = raw[:, 9] * 1e6 + 101325.0
+        flows_in = raw[:, (10, 11, 12, 14, 15)]
+        tot = raw[:, 16]
+        u_in = tot * 1.667e-8 / AREA * (101325.0 * t_in) / (p_abs * 298.0)
+        c_in = (p_abs / (R_GAS * t_in))[:, None] * flows_in \
+            / flows_in.sum(1)[:, None]
+        cond = Conditions.from_numpy(dict(
+            C_in=c_in, T_in=t_in, T_jacket=raw[:, 5] + 273.0, u_in=u_in,
+            void=raw[:, 6], dz=(raw[:, 4] / 1000.0) / (nx - 1),
+            P0=c_in.sum(1) * R_GAS * t_in), dev)
+
+        def f32(a):
+            return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+        return (cond, f32(raw[:, (17, 18, 19, 21, 22)].T),
+                f32(raw[:, (24, 25, 26, 28, 29)].T))
+
+    def to_csv(self, path: str, nx: int = NX) -> None:
+        """Inverse of :meth:`from_csv` (recovers the raw operating
+        quantities)."""
+        c = {k: getattr(self, k).double().cpu().numpy()
+             for k in _COND_FIELDS}
+        p_abs = c["P0"]
+        frac = c["C_in"] / c["C_in"].sum(1)[:, None]
+        tot_sccm = (c["u_in"] * AREA * p_abs * 298.0
+                    / (1.667e-8 * 101325.0 * c["T_in"]))
+        rows = np.column_stack([
+            c["T_jacket"] - 273.0, c["T_in"] - 273.0,
+            (p_abs - 101325.0) / 1e6,
+            frac * tot_sccm[:, None], c["void"], c["dz"] * (nx - 1) * 1000.0])
+        np.savetxt(path, rows, delimiter=",", header=self.CSV_HEADER,
+                   comments="")
 
 
 def condition_table_numpy(n_conditions: int = 30,
@@ -243,6 +333,91 @@ def initial_guess(cond: Conditions, nx: int = NX) -> torch.Tensor:
     return y
 
 
+def _local_rows(y_m, y, y_p, yd, flags, cond_vec, kin):
+    """Residual rows for one grid point (the blocked engine's); the same
+    physics as ``_rows_bl``, block-tridiagonal coupling.
+
+    y_*: (7,) = [Ca..Ce, T, u] at the neighbour/current grid points.
+    flags: (3,) floats = [is_inlet, is_first_interior, is_outlet].
+    cond_vec: (5,) = [T_jacket, u_in, void, dz, P0]. kin: (8,).
+    """
+    T_jacket, u_in, void, dz, P0 = (cond_vec[0], cond_vec[1], cond_vec[2],
+                                    cond_vec[3], cond_vec[4])
+    is_inlet, is_first, is_outlet = flags[0], flags[1], flags[2]
+
+    C_m, T_m, u_m = y_m[:5], y_m[5], y_m[6]
+    C, T, u = y[:5], y[5], y[6]
+    C_p, T_p = y_p[:5], y_p[5]
+    Cd, Td = yd[:5], yd[5]
+
+    sc = _row(SC, y.device, y.dtype)
+    r = rate_rCH4(T, C[0], C[1], C[2], C[3], kin)
+
+    # species balances (one-sided dispersion at the first interior point)
+    conv = (u * C - u_m * C_m) / dz
+    lap = torch.where(is_first > 0, C_p - C, C_p - 2.0 * C + C_m) / dz ** 2
+    res_c = -void * Cd - conv + void * DZ_DISP * lap + (1 - void) * sc * r
+
+    # total-mass balance (T-block row; transient term only at i=1)
+    invT_m, invT, invT_p = 1.0 / T_m, 1.0 / T, 1.0 / T_p
+    tmb = (-u * P0 * (invT - invT_m) / dz
+           - P0 * invT * (u - u_m) / dz
+           + void * DZ_DISP * P0 * (invT_p - 2.0 * invT + invT_m) / dz ** 2
+           + (1 - void) * R_GAS * (-2.0) * r)
+    tmb = tmb + torch.where(is_first > 0, P0 * void * invT ** 2 * Td, 0.0)
+
+    # energy balance (u-block row; accumulation scaled 0.1 in the interior,
+    # unscaled at i=1)
+    rho = gas_density(C, T, P0)
+    heatcap = void * rho * CPG + (1 - void) * RHOS * CPS
+    kappa = torch.where(is_first > 0, 1.0, 0.1)
+    enb = (-kappa * heatcap * Td
+           - rho * CPG * (T * u - T_m * u_m) / dz
+           + KEFF * (T_p - 2.0 * T + T_m) / dz ** 2
+           + (1 - void) * (-HR) * r
+           - 2.0 * U_HT / DINT * (T - T_jacket))
+
+    pde_rows = torch.cat([res_c, tmb[None], enb[None]])
+    # inlet: dX=0 for concentrations and T, u pinned to u_in
+    inlet_rows = torch.cat([Cd, Td[None], (u - u_in)[None]])
+    # outlet: zero gradient; the reference's swapped T/u rows
+    outlet_rows = torch.cat([C - C_m, (u - u_m)[None], (T - T_m)[None]])
+    return torch.where(is_inlet > 0, inlet_rows,
+                       torch.where(is_outlet > 0, outlet_rows, pde_rows))
+
+
+def solve_condition(y0: torch.Tensor, cond_vec: torch.Tensor,
+                    kin: torch.Tensor, dts: torch.Tensor,
+                    newton_iters: int = 3) -> torch.Tensor:
+    """Integrate conditions to t_final with the blocked engine
+    (ops/dae.py): y0 (..., nx, 7), cond_vec (..., 5), kin (..., 8), dts a
+    tensor on y0's device; leading dims a batch of systems (one condition
+    at one kinetic vector each). Returns the final states, y0's shape."""
+    nx = y0.shape[-2]
+
+    def rows(y_m, y, y_p, yd, fl, aux):
+        return _local_rows(y_m, y, y_p, yd, fl, aux[:5], aux[5:])
+
+    batch = y0.shape[:-2]
+    aux = torch.cat([cond_vec.expand(*batch, 5), kin.expand(*batch, 8)],
+                    dim=-1)
+    return implicit_euler_dae(rows, y0, _grid_flags(nx, y0.device), dts,
+                              newton_iters, aux=aux)
+
+
+def outlet_flows(y_final: torch.Tensor) -> torch.Tensor:
+    """Outlet standard-state flows (..., 5) in sccm from final states
+    (..., nx, 7); the reference's T/P factors cancel."""
+    C_out = y_final[..., -1, :5]
+    u_out = y_final[..., -1, 6:7]
+    return C_out * u_out * AREA * 60.0 * R_GAS * 298.0 / P_STP * 1e6
+
+
+def outlet_molfractions(y_final: torch.Tensor) -> torch.Tensor:
+    C_out = y_final[..., -1, :5]
+    return C_out / torch.sum(C_out, -1, keepdim=True)
+
+
 def _rows_bl(Y_m, Y, Y_p, Yd, flags, condv, kin):
     """Batch-last residual: Y_* (7, NX, B); flags (3, NX, 1); condv (5, B)
     = [T_jacket, u_in, void, dz, P0]; kin (8, B). Every op is elementwise
@@ -292,6 +467,8 @@ def _rows_bl(Y_m, Y, Y_p, Yd, flags, condv, kin):
 # uniform in "taylor" mode.
 NORMAL_COEFF = (0.5, 0.5, 0.5, 0.5, 0.3, 0.3, 0.3, 0.3, 0.5)
 UNI_LIST = (0, 1, 2, 3, 8)
+
+ENGINES = ("batch_last", "blocked")
 
 
 def _analytic_full_jac(flags, condv, kin, pad_cols: int = 0):
@@ -512,7 +689,9 @@ class MethanationModel:
     # (6 x 49 x NX x chunk x n_data x 4 B of blocks and factors). Any N
     # works (the trailing chunk is padded).
     particle_chunk: int = 512
-    # "batch_last": the lanes-major engine. "blocked" is not ported.
+    # "batch_last": the lanes-major engine (ops/dae_fast.py), the hot path.
+    # "blocked": the per-system engine (ops/dae.py), the oracle for tests;
+    # it ignores the solver, chunk and Jacobian-lag settings.
     engine: str = "batch_last"
     # "transient": time-accurate BDF2 to t_final. "steady" is not ported;
     # its ptc_* settings are kept so a configuration carries over.
@@ -527,11 +706,9 @@ class MethanationModel:
     lane_mesh: object = None
 
     def __post_init__(self):
-        if self.engine != "batch_last":
-            raise NotImplementedError(
-                f"engine {self.engine!r} is not ported yet (ROADMAP Queue 1 "
-                "item 11: ops/dae.py, the blocked engine); 'batch_last' "
-                "runs")
+        if self.engine not in ENGINES:
+            raise ValueError(f"unknown engine {self.engine!r}; one of "
+                             f"{ENGINES}")
         if self.march != "transient":
             raise NotImplementedError(
                 f"march {self.march!r} is not ported yet (ROADMAP Queue 1 "
@@ -566,7 +743,8 @@ class MethanationModel:
         """The step schedule, float32 on the host (the march turns it into
         scalar coefficients there)."""
         dts = geometric_schedule(self.t_final, self.n_steps, self.growth)
-        if not self.pivot and self.jac_stride > 1:
+        if (self.engine == "batch_last" and not self.pivot
+                and self.jac_stride > 1):
             # Flatten the lagged middle to piecewise-constant h per block.
             k, nd = self.jac_stride, self._n_dense_eff
             nl = self.n_steps - self.dense_tail
@@ -583,7 +761,25 @@ class MethanationModel:
     def simulate_flows(self, kin: torch.Tensor) -> torch.Tensor:
         """(5, n_data) outlet flows at one kinetic parameter vector, with the
         -10000 failure sentinel applied per condition."""
+        if self.engine == "blocked":
+            return self._flows_blocked(kin[None])[0]
         return self._flows_batch_bl(kin[None])[0]
+
+    def _flows_blocked(self, kin_b: torch.Tensor) -> torch.Tensor:
+        """Blocked engine: kin_b (Nc, 8) -> flows (Nc, 5, n_data), every
+        (particle, condition) system through ``solve_condition`` at once,
+        with the failure sentinel per condition (the JAX package maps the
+        per-system solve with vmap over conditions and particles)."""
+        n, nc = kin_b.shape[0], self.cond.n_data
+        y0 = initial_guess(self.cond, self.nx).expand(n, -1, -1, -1)
+        dts = torch.as_tensor(self._dts(), device=kin_b.device)
+        yf = solve_condition(y0, self._cond_vecs()[None], kin_b[:, None],
+                             dts, self.newton_iters)   # (Nc, nc, NX, 7)
+        flows = outlet_flows(yf)                       # (Nc, nc, 5)
+        ok = torch.all(torch.isfinite(flows)
+                       & (torch.abs(flows) < FLOW_SANE), dim=-1,
+                       keepdim=True)
+        return torch.where(ok, flows, FAILURE_SENTINEL).transpose(1, 2)
 
     def simulate_molfractions(self, kin: torch.Tensor) -> torch.Tensor:
         """(5, n_data) outlet mole fractions (failure -> 0). Kept for
@@ -687,6 +883,8 @@ class MethanationModel:
         full.index_copy_(1, _row(self.est_idx, theta.device), theta)
         kin_b, sigma = full[:, :8], full[:, 8]
 
+        if self.engine == "blocked":
+            return self._flows_blocked(kin_b), sigma
         chunk = min(self.particle_chunk, n)
         if n == chunk:
             flows = self._flows_batch_bl(kin_b)
@@ -702,12 +900,43 @@ class MethanationModel:
 
     # -- construction -------------------------------------------------------
     @staticmethod
-    def from_csv(*args, **kwargs):
-        raise NotImplementedError(
-            "the CSV readers are not ported yet (ROADMAP Queue 1 item 13: "
-            "I/O)")
+    def from_csv(conditions_csv: str, data_csv: str, est_idx=EST_DEFAULT,
+                 nx: int = NX, prior_mode: str = "uniform", datalist=None,
+                 device="cuda", **solver_kw) -> "MethanationModel":
+        """Real-data mode: operating conditions from ``conditions_csv``
+        (schema: ``Conditions.CSV_HEADER``) and observed outlet flows from
+        ``data_csv`` ((5, n_data), sccm, no header). ``datalist`` selects
+        an experiment subset by row index."""
+        dev = resolve_device(device)
+        cond = Conditions.from_csv(conditions_csv, nx=nx, device=dev)
+        obs = np.atleast_2d(np.loadtxt(data_csv, delimiter=","))
+        if obs.shape != (5, cond.n_data):
+            raise ValueError(f"data.csv shape {obs.shape} != (5, "
+                             f"{cond.n_data})")
+        if datalist is not None:
+            cond = cond.select(datalist)
+            obs = obs[:, np.asarray(datalist)]
+        return MethanationModel(
+            cond=cond,
+            obs=torch.as_tensor(np.asarray(obs, np.float32), device=dev),
+            prior=methanation_prior(est_idx, mode=prior_mode, device=dev),
+            est_idx=tuple(est_idx), nx=nx, **solver_kw)
 
-    from_reference_csv = from_csv
+    @staticmethod
+    def from_reference_csv(information_csv: str, est_idx=EST_DEFAULT,
+                           nx: int = NX, prior_mode: str = "uniform",
+                           datalist=None, device="cuda", **solver_kw
+                           ) -> "MethanationModel":
+        """Build from a file in the reference's information.csv layout
+        (``Conditions.from_reference_csv``), with the measured outlet flows
+        in that file as the observations."""
+        dev = resolve_device(device)
+        cond, obs_flows, _ = Conditions.from_reference_csv(
+            information_csv, datalist=datalist, nx=nx, device=dev)
+        return MethanationModel(
+            cond=cond, obs=obs_flows,
+            prior=methanation_prior(est_idx, mode=prior_mode, device=dev),
+            est_idx=tuple(est_idx), nx=nx, **solver_kw)
 
     @staticmethod
     def default(n_conditions: int = 30, est_idx=EST_DEFAULT,

@@ -40,23 +40,23 @@ def solve7(A: torch.Tensor, rhs: torch.Tensor, pivot: bool = True
     """Solve A X = rhs, A (n, n, B), rhs (n, k, B), batch on lanes.
 
     Partial pivoting by pairwise conditional row swaps (elementwise selects
-    only), as the reference does it."""
+    only), as the reference does it. A and rhs are held side by side, so a
+    row swap and an elimination update each touch both in one op (half
+    the launches); every entry's arithmetic is the reference's."""
     n = A.shape[0]
-    M, R = A.clone(), rhs.clone()
+    MR = torch.cat([A, rhs], dim=1)                    # (n, n + k, B)
     for c in range(n):
         if pivot:
             for r in range(c + 1, n):
-                swap = torch.abs(M[r, c]) > torch.abs(M[c, c])
-                Mc, Mr = M[c, c:].clone(), M[r, c:].clone()
-                M[c, c:] = torch.where(swap, Mr, Mc)
-                M[r, c:] = torch.where(swap, Mc, Mr)
-                Rc, Rr = R[c].clone(), R[r].clone()
-                R[c] = torch.where(swap, Rr, Rc)
-                R[r] = torch.where(swap, Rc, Rr)
-        inv_p = 1.0 / M[c, c]
-        f = M[c + 1:, c] * inv_p                       # (n-c-1, B)
-        M[c + 1:, c + 1:] -= f[:, None] * M[c, c + 1:][None]
-        R[c + 1:] -= f[:, None] * R[c][None]
+                swap = torch.abs(MR[r, c]) > torch.abs(MR[c, c])
+                row_c = torch.where(swap, MR[r, c:], MR[c, c:])
+                row_r = torch.where(swap, MR[c, c:], MR[r, c:])
+                MR[c, c:] = row_c
+                MR[r, c:] = row_r
+        inv_p = 1.0 / MR[c, c]
+        f = MR[c + 1:, c] * inv_p                      # (n-c-1, B)
+        MR[c + 1:, c + 1:] -= f[:, None] * MR[c, c + 1:][None]
+    M, R = MR[:, :n], MR[:, n:]
     X = torch.empty_like(R)
     for c in range(n - 1, -1, -1):
         inv_p = 1.0 / M[c, c]

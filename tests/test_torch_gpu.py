@@ -12,7 +12,10 @@ the card against the same ensemble on the CPU, and the graphed runs
 backward passes) against the eager composition of the same pieces, bit for
 bit, with their launch accounting; block granularity against sweep
 granularity; the autograd gradients and a MAP estimate on the card
-against the CPU's.
+against the CPU's; a checkpoint taken inside a graphed run resumed
+bit-equal in each format, the Robertson ``bdf2`` march graphed against
+eager, MM ``dopri5`` to gamma = 1, and the blocked methanation engine at
+the flagship's full width and depth against the lanes-major one.
 
 Every test here needs an NVIDIA GPU with nvcc and skips without one (the
 ``cuda`` fixture decides, inside the test). This file imports neither JAX
@@ -860,3 +863,83 @@ def test_map_on_the_card_matches_the_cpu(cuda):
     g, c = out["cuda"], out["cpu"]
     assert bool(((g.theta.cpu() - c.theta).abs() < 0.02).all())
     assert abs(float(g.log_post) - float(c.log_post)) < 0.05
+
+
+@pytest.mark.parametrize("fmt", ["npz", "smck", "smcd"])
+def test_checkpoint_in_a_graphed_run_resumes_bit_equal(cuda, tmp_path, fmt):
+    """A checkpoint taken by run_smc's callback (the run's steps graph
+    replays) in each format resumes on the card to the uninterrupted run's
+    final state, bit for bit, with its generator state."""
+    from smc_tpu_torch import run_smc
+    from smc_tpu_torch.io import checkpoint as ck
+    from smc_tpu_torch.runtime import AsyncCheckpointer
+    m = MichaelisMentenModel.default(method="pallas_exact", device=cuda)
+    cfg = SMCConfig(n_particles=20_000)
+    path = str(tmp_path / "mid")
+    with AsyncCheckpointer() as writer:
+        def callback(s):
+            if int(s.step) != 3:
+                return
+            if fmt == "npz":
+                ck.save_state(path + ".npz", s)
+            elif fmt == "smck":
+                ck.save_state_async(writer, path + ".smck", s)
+            else:
+                ck.save_state_chunked(path, s, max_bytes=50_000)
+        final = run_smc(m, cfg, 5, callback=callback, verbose=False)
+        writer.flush()
+        assert writer.stats() == {"written": int(fmt == "smck"),
+                                  "errors": 0, "native": True}
+    resumed = run_smc(m, cfg, None, verbose=False,
+                      state=ck.load_state(f"{path}.{fmt}", device=cuda))
+    assert int(final.step) > 3 and bool(final.gamma == 1.0)
+    for f in _STATE_FIELDS:
+        assert torch.equal(getattr(resumed, f), getattr(final, f)), f
+    assert torch.equal(resumed.key.generator.get_state(),
+                       final.key.generator.get_state())
+
+
+@pytest.mark.parametrize("form", ["ode", "dae"])
+def test_robertson_bdf2_graphed_is_bit_equal_to_eager(cuda, form):
+    """The implicit march (forward-mode Jacobians, pivoted solves) inside
+    the captured graphs gives the eager composition's bits; a short run
+    (2 steps of 2 sweeps)."""
+    from smc_tpu_torch.models.generic import robertson_model
+    m = robertson_model(form=form, device=cuda)
+    cfg = SMCConfig(n_particles=1024, max_steps=2, mh_steps=2)
+    g = make_full_run_on_device(m, cfg)(1)
+    e = _eager_run(m, cfg, 1)
+    assert int(g.step) == 2 and bool(torch.isfinite(g.log_evidence))
+    for f in _STATE_FIELDS:
+        assert torch.equal(getattr(g, f), getattr(e, f)), f
+
+
+def test_mm_dopri5_runs_to_gamma_one(cuda):
+    m = MichaelisMentenModel.default(method="dopri5", device=cuda)
+    s = make_full_run_on_device(m, SMCConfig(n_particles=20_000))(3)
+    assert bool(s.gamma == 1.0) and bool(torch.isfinite(s.particles).all())
+    mean = s.particles.double().mean(0).cpu()
+    assert abs(float(mean[0]) - 1.2) < 0.05 and abs(float(mean[1]) - 0.5) \
+        < 0.05
+
+
+def test_blocked_engine_at_flagship_depth_matches_lanes_major(cuda):
+    """The blocked oracle at the flagship's full width and depth (nx = 51,
+    30 conditions, the 48-step march) against the lanes-major engine with
+    ``pivot=True``: flows within rtol 1e-3 and atol 5e-3, the JAX
+    package's tolerance between its two engines, at N = 64 posterior-bulk
+    thetas; about a minute a side, bound by the host's launches."""
+    import dataclasses
+
+    from smc_tpu_torch.models.methanation import MethanationModel
+    m = MethanationModel.default(device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(16)
+    truth = torch.tensor([m.base_params[i] for i in m.est_idx], device=cuda)
+    theta = truth * (1.0 + 0.005 * torch.randn(
+        (64, len(m.est_idx)), generator=gen, device=cuda))
+    ll_b, flows_b = dataclasses.replace(m, engine="blocked").log_likelihood(
+        theta)
+    ll_l, flows_l = dataclasses.replace(m, pivot=True).log_likelihood(theta)
+    assert m.nx == 51 and m.cond.n_data == 30 and m.n_steps == 48
+    assert bool(torch.isfinite(ll_b).all())
+    torch.testing.assert_close(flows_b, flows_l, rtol=1e-3, atol=5e-3)

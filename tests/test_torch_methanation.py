@@ -244,22 +244,24 @@ def test_failed_or_degenerate_particles_never_give_nan(pair):
 
 
 def test_what_is_not_ported_raises():
+    """The steady march, the tangent-built Jacobians, the cr/babe solvers
+    and the lane mesh still refuse (ROADMAP Queue 1 items 7, 8, 12); an
+    unknown solver or engine is an error. The blocked engine and the CSV
+    readers are ported (tests/test_torch_blocked.py,
+    tests/test_torch_io.py)."""
     cond = TM.make_condition_table(NC, nx=NX, device="cpu")
     base = dict(cond=cond, obs=torch.zeros((5, NC)),
                 prior=TM.methanation_prior(device="cpu"), nx=NX)
-    for kw in (dict(engine="blocked"), dict(march="steady"),
+    for kw in (dict(march="steady"),
                dict(jac_mode="cd"), dict(jac_mode="ad"),
                dict(solver="cr"), dict(solver="babe"),
                dict(lane_mesh=object())):
         with pytest.raises(NotImplementedError):
             TM.MethanationModel(**base, **kw)
-    with pytest.raises(ValueError):
-        TM.MethanationModel(**base, solver="qr")
-    for fn in (TM.MethanationModel.from_csv,
-               TM.MethanationModel.from_reference_csv,
-               TM.Conditions.from_csv, TM.Conditions.from_reference_csv):
-        with pytest.raises(NotImplementedError):
-            fn("conditions.csv")
+    for kw in (dict(solver="qr"), dict(engine="dense")):
+        with pytest.raises(ValueError):
+            TM.MethanationModel(**base, **kw)
+    assert TM.MethanationModel(**base, engine="blocked").engine == "blocked"
 
 
 def test_likelihood_call_path_copies_nothing_to_the_device():

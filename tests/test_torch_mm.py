@@ -159,5 +159,9 @@ def test_generated_truth_matches_jax_and_noise_is_seeded():
 
 
 def test_unported_method_raises():
-    with pytest.raises(NotImplementedError):
-        MichaelisMentenModel.default(method="dopri5", device="cpu")
+    """Every JAX method is ported (``dopri5`` since ROADMAP Queue 1 item
+    11); a method neither package has still raises."""
+    with pytest.raises(NotImplementedError, match="not implemented"):
+        MichaelisMentenModel.default(method="euler", device="cpu")
+    assert MichaelisMentenModel.default(method="dopri5",
+                                        device="cpu").method == "dopri5"

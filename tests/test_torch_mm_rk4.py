@@ -140,9 +140,18 @@ def test_model_method_pallas_fixed_sigma_and_substeps(data):
 
 
 def test_dopri5_still_raises(data):
+    """``dopri5`` once raised here; it is ported now (ROADMAP Queue 1 item
+    11): the builder makes the model, and its likelihood is rk4's within
+    the two integrators' truncation error (the JAX comparison is in
+    tests/test_torch_generic.py). An unknown method still raises."""
     ts, obs, s0, _ = data
+    th = torch.from_numpy(_stable_theta(64, 3))
+    lls = [convert.mm_model_from_numpy(obs, s0, ts, _PRIOR, method=m,
+                                       device="cpu").log_likelihood(th)[0]
+           for m in ("dopri5", "rk4")]
+    torch.testing.assert_close(lls[0], lls[1], rtol=1e-3, atol=0.0)
     with pytest.raises(NotImplementedError):
-        convert.mm_model_from_numpy(obs, s0, ts, _PRIOR, method="dopri5",
+        convert.mm_model_from_numpy(obs, s0, ts, _PRIOR, method="euler",
                                     device="cpu")
 
 

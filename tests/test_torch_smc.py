@@ -206,9 +206,9 @@ def test_degenerate_covariance_rejects_instead_of_nan(models):
 
 def test_unported_options_raise(models):
     """What still refuses: a gradient kind on a CUDA kernel's likelihood
-    (ValueError: the kernels have no backward), MM ``method="dopri5"``
-    (ROADMAP Queue 1 item 11) and the methanation likelihood under a
-    gradient kind (item 8), each NotImplementedError."""
+    (ValueError: the kernels have no backward) and the methanation
+    likelihood under a gradient kind (item 8, NotImplementedError). MM
+    ``method="dopri5"`` refused until item 11 ported it; it builds now."""
     from smc_tpu_torch.models import methanation as TM
     from smc_tpu_torch.models.michaelis_menten import MichaelisMentenModel
     _, tm = models
@@ -218,8 +218,8 @@ def test_unported_options_raise(models):
     with pytest.raises(ValueError, match="no backward"):
         mutate(None, x, pe.log_likelihood(x)[0], torch.tensor(0.5),
                pe.log_likelihood, pe.prior, cfg)
-    with pytest.raises(NotImplementedError, match="dopri5"):
-        MichaelisMentenModel.default(method="dopri5", device="cpu")
+    assert MichaelisMentenModel.default(method="dopri5",
+                                        device="cpu").method == "dopri5"
     meth = convert.methanation_model_from_numpy(
         TM.condition_table_numpy(2, nx=11), np.zeros((5, 2), np.float32),
         TM.methanation_prior(device="cpu"), nx=11, device="cpu")
