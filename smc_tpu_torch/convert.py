@@ -84,7 +84,9 @@ def methanation_model_from_numpy(cond: Mapping, obs, prior,
     """A methanation model from ``cond`` (a mapping of the seven
     ``Conditions`` fields as arrays), obs (5, n_data) in sccm and a prior: a
     port ``Prior`` or a mapping of the five prior arrays. ``solver_kw`` are
-    further ``MethanationModel`` fields (nx, n_steps, jac_stride, ...)."""
+    further ``MethanationModel`` fields (nx, n_steps, jac_stride, march,
+    jac_mode, solver, the ptc_* settings, ...), passed unchanged, so the
+    JAX package's model with the same keywords is the same model."""
     dev = resolve_device(device)
     return MethanationModel(
         cond=Conditions.from_numpy(cond, dev),

@@ -23,14 +23,17 @@ code):
 - Subset estimation: the particle holds only the estimated parameters; the
   rest stay at their base values.
 
-What runs: the lanes-major engine (``ops/dae_fast.py``), the transient BDF2
-march with the lagged analytic Jacobian, and the block-Thomas kernels of
-``ops/thomas_cuda.py``; the per-system engine (``engine="blocked"``,
-``ops/dae.py``: local Jacobians by ``torch.func.jacfwd``, block-Thomas
-through ``ops/linalg.py``), the oracle of the lanes-major one; the CSV
-readers and writer of the condition table. The steady march, the
-tangent-built Jacobians and the lane mesh are not ported yet and raise
-``NotImplementedError``.
+What runs: the lanes-major engine (``ops/dae_fast.py``): the transient BDF2
+march with the lagged Jacobian, or the steady march (``march="steady"``,
+per-lane pseudo-transient continuation) whose gradient is the
+implicit-function adjoint (``_make_steady_solve``); Jacobian blocks in
+closed form (``jac_mode="full"``), in part (``"cd"``) or wholly (``"ad"``)
+by tangent passes; the block-Thomas kernels of ``ops/thomas_cuda.py`` or
+the plain "thomas", "cr" and "babe" solvers. The per-system engine
+(``engine="blocked"``, ``ops/dae.py``: local Jacobians by
+``torch.func.jacfwd``, block-Thomas through ``ops/linalg.py``) is the
+oracle of the lanes-major one. The CSV readers and writer of the condition
+table. The lane mesh is not ported yet and raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -43,7 +46,9 @@ import torch
 
 from smc_tpu_torch.config import resolve_device
 from smc_tpu_torch.ops.dae import geometric_schedule, implicit_euler_dae
-from smc_tpu_torch.ops.dae_fast import bdf_march_bl, resolve_solver
+from smc_tpu_torch.ops.dae_fast import (_newton_kit, bdf_march_bl,
+                                        block_thomas_bl, resolve_solver,
+                                        steady_march_bl)
 from smc_tpu_torch.priors import Prior
 from smc_tpu_torch.smc.diagnostics import FAILURE_SENTINEL
 
@@ -469,6 +474,67 @@ NORMAL_COEFF = (0.5, 0.5, 0.5, 0.5, 0.3, 0.3, 0.3, 0.3, 0.5)
 UNI_LIST = (0, 1, 2, 3, 8)
 
 ENGINES = ("batch_last", "blocked")
+MARCHES = ("transient", "steady")
+JAC_MODES = ("full", "cd", "ad")
+
+
+def _assemble(entries, y, pad_cols):
+    """One Jacobian block from ``entries`` ((row, col) -> value
+    broadcastable to (NX, B)); the rest, and ``pad_cols`` zero columns,
+    stay zero. Assembled grid-major, as (NX, 7, ncol, B) in memory, and
+    returned as a view in the reference's (7, ncol, NX, B) order: the
+    march's sweeps and the kernels then read it without a copy."""
+    nf, nx, bt = y.shape
+    blk = torch.zeros((nx, nf, nf + pad_cols, bt), dtype=y.dtype,
+                      device=y.device)
+    for (i, j), v in entries.items():
+        blk[:, i, j, :] = v
+    return blk.permute(1, 2, 0, 3)
+
+
+def _analytic_CD_jac(flags, condv, pad_cols: int = 0):
+    """Closed-form y_p (slot 2) and yd (slot 3) Jacobian blocks of
+    ``_rows_bl``: these slots enter only linearly (the dispersion and
+    conduction stencils and the mass terms), so the march builds only the
+    y_m and y slots by tangent passes (``jac_mode="cd"``, the autodiff
+    cross-check path)."""
+    is_inlet, is_first, is_outlet = flags[0], flags[1], flags[2]  # (NX, 1)
+    void, dz, P0 = condv[2], condv[3], condv[4]
+
+    def jac(y_m, y, y_p, yd):
+        nf, nx, bt = y.shape
+        T, T_p, C = y[5], y_p[5], y[:5]
+        pde = (1.0 - is_inlet) * (1.0 - is_outlet)        # (NX, 1)
+        ones = torch.ones((nx, bt), dtype=y.dtype, device=y.device)
+
+        disp = pde * void * DZ_DISP / dz ** 2             # (NX, B)
+        eC = {(k, k): disp for k in range(5)}
+        eC[(5, 5)] = -disp * P0 / (T_p * T_p)
+        eC[(6, 5)] = pde * KEFF / dz ** 2 * ones
+
+        mw = _const(MOLW, y.device, y.dtype)
+        rho = P0 / (R_GAS * T) * torch.sum(C * mw, 0) / torch.sum(C, 0) \
+            * 1e-3
+        heatcap = void * rho * CPG + (1 - void) * RHOS * CPS
+        kappa = torch.where(is_first > 0, 1.0, 0.1)
+
+        eD = {(k, k): is_inlet - pde * void for k in range(5)}
+        eD[(5, 5)] = is_inlet + pde * is_first * P0 * void / (T * T)
+        eD[(6, 5)] = pde * (-kappa * heatcap)
+        return {2: _assemble(eC, y, pad_cols), 3: _assemble(eD, y, pad_cols)}
+
+    return jac
+
+
+def _jac_of(jac_mode: str, flags, condv, kin, pad_cols: int = 0):
+    """The ``analytic_jac`` callback of a Jacobian mode: every slot in
+    closed form ("full"), slots 2 and 3 ("cd"), or none ("ad": all 28
+    block columns by tangent passes)."""
+    if jac_mode == "full":
+        return _analytic_full_jac(flags, condv, kin, pad_cols=pad_cols)
+    if jac_mode == "cd":
+        return _analytic_CD_jac(flags, condv, pad_cols=pad_cols)
+    return None
 
 
 def _analytic_full_jac(flags, condv, kin, pad_cols: int = 0):
@@ -495,13 +561,7 @@ def _analytic_full_jac(flags, condv, kin, pad_cols: int = 0):
         ones = torch.ones((nx, bt), dtype=y.dtype, device=y.device)
 
         def asm(entries):
-            # entries: (row, col) -> value broadcastable to (nx, bt); the
-            # rest, and the pad columns, stay zero.
-            blk = torch.zeros((nx, nf, nf + pad_cols, bt), dtype=y.dtype,
-                              device=y.device)
-            for (i, j), v in entries.items():
-                blk[:, i, j, :] = v
-            return blk.permute(1, 2, 0, 3)
+            return _assemble(entries, y, pad_cols)
 
         # ---- rate-law partials (shared by rows 0-6) ----------------------
         RT6 = R_GAS * T * 1e-6
@@ -615,6 +675,100 @@ def _analytic_full_jac(flags, condv, kin, pad_cols: int = 0):
     return jac
 
 
+class _SteadySolve(torch.autograd.Function):
+    """The steady solve with the implicit-function-theorem adjoint as its
+    backward (see :func:`_make_steady_solve`)."""
+
+    @staticmethod
+    def forward(ctx, kin_bl, condv, flags, y0, spec):
+        # The march records no autograd graph (grad mode is off here).
+        jac_mode, pad, march_kw = spec
+
+        def rows(y_m, y, y_p, yd):
+            return _rows_bl(y_m, y, y_p, yd, flags, condv, kin_bl)
+        yf = steady_march_bl(rows, y0, analytic_jac=_jac_of(
+            jac_mode, flags, condv, kin_bl, pad), **march_kw)
+        ctx.save_for_backward(kin_bl, condv, flags, yf)
+        ctx.h_max = march_kw.get("h_max", 1e6)
+        return yf
+
+    @staticmethod
+    def backward(ctx, ybar):
+        kin_bl, condv, flags, yf = ctx.saved_tensors
+
+        def rows(y_m, y, y_p, yd):
+            return _rows_bl(y_m, y, y_p, yd, flags, condv, kin_bl)
+
+        # Jh = dF/dy + D/h_max at y*, the march's terminal Newton system
+        # (alpha = 1, const = -y*: yd = 0 at the point, and the mass term
+        # D/h_max regularizes the singular bare J), edge-folded as the
+        # residual's neighbour shifts are; layout (NX, 7, 7, B).
+        shift, _, build_blocks = _newton_kit(rows, yf, True,
+                                             _analytic_full_jac(
+                                                 flags, condv, kin_bl),
+                                             "thomas")[:3]
+        A_, B_, C_, _ = build_blocks(yf, 1.0, -yf, ctx.h_max)
+        # J^T is block-tridiagonal with sub'_i = C_{i-1}^T, diag' = B_i^T,
+        # super'_i = A_{i+1}^T (a blockwise transpose swaps the 7-axes).
+        zpad = torch.zeros_like(A_[:1])
+        A_T = torch.cat([zpad, C_.transpose(1, 2)[:-1]])
+        C_T = torch.cat([A_.transpose(1, 2)[1:], zpad])
+        lam = block_thomas_bl(A_T, B_.transpose(1, 2), C_T,
+                              ybar.movedim(1, 0), pivot=True)
+        # kin cotangent: the rows give -F, so pulling lam back through
+        # them gives -lam^T dF/dkin, which is dl/dkin. Autograd switches
+        # grad mode off inside a backward; this VJP needs it on.
+        y_m, y_p = shift(yf)
+        with torch.enable_grad():
+            kin = kin_bl.detach().requires_grad_(True)
+            F = _rows_bl(y_m, yf, y_p, torch.zeros_like(yf), flags, condv,
+                         kin)
+            (kbar,) = torch.autograd.grad(-F.movedim(1, 0), kin, lam)
+        return kbar, None, None, None, None
+
+
+def _make_steady_solve(steady_kwargs: dict):
+    """The steady-state solve with a custom backward: the DIFFERENTIABLE
+    flagship likelihood path. Returns ``solve(kin_bl, condv, flags, y0) ->
+    yf``.
+
+    Forward = the SER pseudo-transient march
+    (``ops.dae_fast.steady_march_bl``), recording no autograd graph.
+    Backward = the implicit-function-theorem adjoint at the converged
+    state: with F(y*, kin) = 0,
+
+        dl/dkin = -lambda^T dF/dkin,   Jh^T lambda = dl/dy*,
+
+    i.e. ONE transposed block-tridiagonal solve (the pivoted plain
+    ``block_thomas_bl``) plus one VJP of the residual rows with respect to
+    the kinetic parameters: no backprop through the march, no stored
+    trajectory.
+
+    Jh = dF/dy* + D/h_max is the march's own terminal Newton system, not
+    the bare steady Jacobian, which is numerically singular on this
+    discretized reactor: the null component of lambda cancels in the kin
+    contraction, and the regularized adjoint matches central differences
+    (tests/test_torch_methanation_grad.py).
+
+    A failed lane (yf = NaN from the march's convergence certificate), or
+    a lane whose adjoint is not finite, gives a non-finite gradient in its
+    own particle's row only: lanes never mix in the block solves. The
+    gradient mutations set non-finite gradients to 0. The cotangents of
+    condv, flags and y0 are None (the JAX package's are zeros): the steady
+    state does not depend on the guess, and the conditions are data.
+
+    The backward reads nothing on the host, so it captures into a CUDA
+    graph with its forward (the gradient mutations' graphs)."""
+    kw = dict(steady_kwargs)
+    jac_mode, pad = kw.pop("jac_mode", "full"), kw.pop("pad", 0)
+    spec = (jac_mode, pad, kw)
+
+    def solve(kin_bl, condv, flags, y0):
+        return _SteadySolve.apply(kin_bl, condv, flags, y0, spec)
+
+    return solve
+
+
 def methanation_prior(est_idx=EST_DEFAULT, mode: str = "uniform",
                       device="cuda") -> Prior:
     """Prior over the estimated parameter subset.
@@ -677,12 +831,17 @@ class MethanationModel:
     n_dense: int = 0
     reuse_iters: int = 1
     dense_tail: int = 6
-    # Jacobian-block construction. Only "full" (closed-form blocks for all
-    # four slots) is ported; "cd" and "ad" need tangent passes.
+    # Jacobian-block construction: "full" = closed-form blocks for all four
+    # slots; "cd" = closed-form y_p/yd blocks and tangent passes for the
+    # y_m/y slots (the autodiff cross-check); "ad" = all 28 block columns
+    # by tangent passes (ops.dae_fast._tangent_blocks).
     jac_mode: str = "full"
     # Linear solver for the Newton updates: "auto"/"thomas_pl" = the CUDA
     # block-Thomas kernels (their plain versions on the CPU); "thomas" = the
-    # plain loops on any device. See ops.dae_fast.resolve_solver.
+    # plain loops on any device; "cr" = block cyclic reduction; "babe" =
+    # the two-ended block-Thomas sweep (odd nx). See
+    # ops.dae_fast.resolve_solver. The kernels have no backward: a
+    # transient march's gradient needs a plain solver.
     solver: str = "auto"
     # Particles are processed in chunks of (chunk x n_data) simultaneous DAE
     # systems, which bounds the live Jacobian working set
@@ -693,8 +852,14 @@ class MethanationModel:
     # "blocked": the per-system engine (ops/dae.py), the oracle for tests;
     # it ignores the solver, chunk and Jacobian-lag settings.
     engine: str = "batch_last"
-    # "transient": time-accurate BDF2 to t_final. "steady" is not ported;
-    # its ptc_* settings are kept so a configuration carries over.
+    # "transient": time-accurate BDF2 to t_final. "steady": per-lane SER
+    # pseudo-transient continuation straight to the t -> inf steady state
+    # (ops.dae_fast.steady_march_bl; ptc_steps pseudo-steps from ptc_dt0,
+    # growth capped at ptc_growth with floor ptc_floor, the factors reused
+    # ptc_lag - 1 times with ptc_reuse_iters applies), valid because the
+    # likelihood reads only the endpoint; its gradient is the
+    # implicit-function adjoint (_make_steady_solve). batch_last engine
+    # only (the blocked engine marches in time whatever this says).
     march: str = "transient"
     ptc_steps: int = 14
     ptc_dt0: float = 0.02
@@ -709,19 +874,18 @@ class MethanationModel:
         if self.engine not in ENGINES:
             raise ValueError(f"unknown engine {self.engine!r}; one of "
                              f"{ENGINES}")
-        if self.march != "transient":
-            raise NotImplementedError(
-                f"march {self.march!r} is not ported yet (ROADMAP Queue 1 "
-                "item 7: steady_march_bl); 'transient' runs")
-        if self.jac_mode != "full":
-            raise NotImplementedError(
-                f"jac_mode {self.jac_mode!r} is not ported yet (ROADMAP "
-                "Queue 1 item 8: the tangent-built Jacobians); 'full' runs")
+        if self.march not in MARCHES:
+            raise ValueError(f"unknown march {self.march!r}; one of "
+                             f"{MARCHES}")
+        if self.jac_mode not in JAC_MODES:
+            raise ValueError(f"unknown jac_mode {self.jac_mode!r}; one of "
+                             f"{JAC_MODES}")
         if self.lane_mesh is not None:
             raise NotImplementedError(
                 "lane_mesh is not ported yet (ROADMAP Queue 1 item 12: "
                 "multi-GPU)")
-        resolve_solver(self.solver)
+        if resolve_solver(self.solver) == "babe" and self.nx % 2 == 0:
+            raise ValueError(f"babe solver requires odd NX, got {self.nx}")
 
     @property
     def device(self) -> torch.device:
@@ -790,13 +954,11 @@ class MethanationModel:
         return torch.where(ok & (tot > 0),
                            flows / torch.where(tot == 0, 1.0, tot), 0.0)
 
-    def _lane_problem(self, kin_b: torch.Tensor, pad_cols: int = 0):
-        """kin_b (Nc, 8) -> (rows, jac, y0) of the flattened batch: particles
-        x conditions on one lane axis B = Nc * n_data (particle-major).
-        ``rows`` and ``jac`` are the residual and Jacobian callbacks
-        ``bdf_march_bl`` takes, y0 (7, NX, B) the initial guess.
-        ``pad_cols=1`` makes ``jac`` emit 8-column blocks, the reference's
-        padded layout."""
+    def _lane_tensors(self, kin_b: torch.Tensor):
+        """kin_b (Nc, 8) -> (kin_bl (8, B), condv (5, B), flags (3, NX, 1),
+        y0 (7, NX, B)) of the flattened batch: particles x conditions on
+        one lane axis B = Nc * n_data (particle-major), y0 the initial
+        guess."""
         nc = self.cond.n_data
         n = kin_b.shape[0]
         kin_bl = kin_b.T[:, :, None].expand(-1, n, nc).reshape(-1, n * nc)
@@ -804,31 +966,52 @@ class MethanationModel:
         y0 = initial_guess(self.cond, self.nx)             # (nc, NX, 7)
         y0 = y0.permute(2, 1, 0).repeat(1, 1, n)           # (7, NX, B)
         flags = _grid_flags(self.nx, self.device).T[:, :, None]  # (3, NX, 1)
+        return kin_bl, condv, flags, y0
+
+    def _lane_problem(self, kin_b: torch.Tensor, pad_cols: int = 0):
+        """kin_b (Nc, 8) -> (rows, jac, y0): the residual and Jacobian
+        callbacks the marches take (``jac`` by ``jac_mode``; None for
+        "ad") and the initial guess (7, NX, B). ``pad_cols=1`` makes
+        ``jac`` emit 8-column blocks, the reference's padded layout."""
+        kin_bl, condv, flags, y0 = self._lane_tensors(kin_b)
 
         def rows(y_m, y, y_p, yd):
             return _rows_bl(y_m, y, y_p, yd, flags, condv, kin_bl)
 
-        return rows, _analytic_full_jac(flags, condv, kin_bl,
-                                        pad_cols=pad_cols), y0
+        return rows, _jac_of(self.jac_mode, flags, condv, kin_bl,
+                             pad_cols), y0
+
+    def _steady_kwargs(self, pad_cols: int = 0) -> dict:
+        """The steady solve's settings, as the JAX package passes them."""
+        return dict(jac_mode=self.jac_mode, pad=pad_cols,
+                    n_steps=self.ptc_steps, h0=self.ptc_dt0,
+                    grow_cap=self.ptc_growth, grow_floor=self.ptc_floor,
+                    lag=self.ptc_lag, reuse_iters=self.ptc_reuse_iters,
+                    newton_iters=self.newton_iters, pivot=self.pivot,
+                    solver=self.solver)
 
     def _flows_batch_bl(self, kin_b: torch.Tensor, pad_cols: int = 0
                         ) -> torch.Tensor:
-        """kin_b (Nc, 8) -> flows (Nc, 5, n_data): ONE batch-last BDF march
-        for all Nc * n_data systems. With ``pad_cols=1`` the march runs on
-        padded factors (the stride-8 apply kernel) and must give the same
-        flows."""
+        """kin_b (Nc, 8) -> flows (Nc, 5, n_data): ONE batch-last march
+        (transient BDF or steady) for all Nc * n_data systems. With
+        ``pad_cols=1`` the march runs on padded factors (the stride-8 apply
+        kernel) and must give the same flows."""
         nc = self.cond.n_data
         n = kin_b.shape[0]
-        rows, jac, y0 = self._lane_problem(kin_b, pad_cols)
-        yf = bdf_march_bl(rows, y0, self._dts(),
-                          newton_iters=self.newton_iters,
-                          pivot=self.pivot,
-                          analytic_jac=jac,
-                          jac_stride=self.jac_stride,
-                          n_dense=self._n_dense_eff,
-                          reuse_iters=self.reuse_iters,
-                          dense_tail=self.dense_tail,
-                          solver=self.solver)
+        if self.march == "steady":
+            solve = _make_steady_solve(self._steady_kwargs(pad_cols))
+            yf = solve(*self._lane_tensors(kin_b))
+        else:
+            rows, jac, y0 = self._lane_problem(kin_b, pad_cols)
+            yf = bdf_march_bl(rows, y0, self._dts(),
+                              newton_iters=self.newton_iters,
+                              pivot=self.pivot,
+                              analytic_jac=jac,
+                              jac_stride=self.jac_stride,
+                              n_dense=self._n_dense_eff,
+                              reuse_iters=self.reuse_iters,
+                              dense_tail=self.dense_tail,
+                              solver=self.solver)
         flows = (yf[:5, -1, :] * yf[6, -1, :] * AREA * 60.0 * R_GAS * 298.0
                  / P_STP * 1e6)                            # (5, B)
         flows = flows.reshape(5, n, nc)
@@ -856,20 +1039,27 @@ class MethanationModel:
 
         All particles' parameters are scattered into full 9-vectors (the
         base-parameter overwrite of subset estimation) and the flattened
-        particle x condition batch runs through one lanes-major BDF march
-        per chunk of ``particle_chunk`` particles.
+        particle x condition batch runs through one lanes-major march per
+        chunk of ``particle_chunk`` particles.
 
-        It has no gradient: the march runs the block-Thomas kernels, which
-        have no backward, and the steady march with its implicit-function
-        adjoint is not ported, so a theta that requires grad (the gradient
-        mutations') raises.
+        Gradients (a theta that requires grad: the gradient mutations,
+        MAP): with ``march="steady"`` through the implicit-function adjoint,
+        whatever the solver; with ``march="transient"`` through the plain
+        loops of "thomas", "cr" or "babe" (the JAX package differentiates
+        through its XLA scan). The kernel solvers ("auto", "thomas_pl")
+        have no backward and raise ``ValueError``.
         """
-        if theta.requires_grad:
-            raise NotImplementedError(
-                "the methanation likelihood has no gradient yet: its march "
-                "runs the block-Thomas kernels, which have no backward, and "
-                "the steady march's implicit-function adjoint is not ported "
-                "(ROADMAP Queue 1 item 8); use mutation='rwm'")
+        if (theta.requires_grad and torch.is_grad_enabled()
+                and self.engine == "batch_last"
+                and self.march == "transient"
+                and resolve_solver(self.solver) == "thomas_pl"):
+            raise ValueError(
+                "the gradient mutations (mala, hmc) and MAP need a "
+                "differentiable log-likelihood, and the transient march on "
+                f"solver {self.solver!r} carries no autograd graph: the CUDA "
+                "block-Thomas kernels have no backward, as the JAX "
+                "package's Pallas kernels have none; use march='steady' or "
+                "solver='thomas'")
         flows, sigma = self._flows_and_sigma(theta)
         return self._ll_from_flows(flows, sigma), flows
 

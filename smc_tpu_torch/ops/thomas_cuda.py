@@ -13,7 +13,9 @@ thread per lane, the NX recurrence a loop inside the thread, the rows staged
 through a ring in shared memory by asynchronous copies, at any B (the
 ragged tail is masked). The plain versions are the Python loops of
 ``ops/dae_fast.py``. A CPU tensor takes the plain version; a CUDA tensor
-launches the kernel or raises.
+launches the kernel or raises. The kernels have no backward, so an input
+that autograd tracks is refused on every device (``ValueError``): the
+solve would otherwise drop its share of the gradient without a word.
 
 Column pad: the TPU kernels want 8-column blocks (sublane-aligned row
 DMAs). That has no meaning on this card, so nothing here needs the pad. It
@@ -82,6 +84,17 @@ def kernel_info(name: str, nx: int) -> dict:
                      "spill_bytes", "lanes_per_block"), out))
 
 
+def _refuse_tracked(name, *ts):
+    """Raise ValueError when autograd records and any of ``ts`` requires
+    grad: the kernels have no backward, and their plain stand-ins must not
+    differentiate where the card could not."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+        raise ValueError(
+            f"{name}: an input requires grad, but the CUDA block-Thomas "
+            "kernels have no backward, as the JAX package's Pallas kernels "
+            "have none; use solver='thomas' (the plain loops) or detach")
+
+
 def _check_blocks(name, M, nx, ncol, b, dev):
     _build.check_input(M, name, torch.float32, 4, dev)
     if tuple(M.shape) != (nx, NF, ncol, b):
@@ -100,6 +113,7 @@ def block_thomas_factor_pl(A, B, C):
     if A.dim() != 4 or A.shape[1] != NF or A.shape[2] not in (NF, _SUB):
         raise ValueError(f"blocks must be (NX, {NF}, {NF} or {_SUB}, B), "
                          f"got {tuple(A.shape)}")
+    _refuse_tracked("block_thomas_factor_pl", A, B, C)
     if A.device.type == "cpu":
         LUs, ms = block_thomas_factor_plain(A, B, C)
         return LUs, ms, C
@@ -145,6 +159,7 @@ def block_thomas_apply_pl(LUs, ms, C, rhs) -> torch.Tensor:
     ``csrc/thomas_apply.cu``; CPU tensors take
     :func:`block_thomas_apply_plain`.
     """
+    _refuse_tracked("block_thomas_apply_pl", LUs, ms, C, rhs)
     if rhs.device.type == "cpu":
         return block_thomas_apply_plain(LUs, ms, C, rhs)
     if rhs.device.type != "cuda":
@@ -165,6 +180,7 @@ def block_thomas_apply_tiled(LUs, ms, C, rhs) -> torch.Tensor:
     if LUs.dim() != 4 or LUs.shape[2] != NF:
         raise ValueError(f"factors must be (NX, {NF}, {NF}, B), got "
                          f"{tuple(LUs.shape)}")
+    _refuse_tracked("block_thomas_apply_tiled", LUs, ms, C, rhs)
     if rhs.device.type == "cpu":
         return block_thomas_apply_plain(LUs, ms, C, rhs)
     if rhs.device.type != "cuda":

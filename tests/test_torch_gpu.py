@@ -2,7 +2,7 @@
 plain PyTorch version on the card, the wrappers' input checks, a short run
 of the Michaelis-Menten main path through its three kernels, the
 block-Thomas kernels at lane counts around their 32-lane tiles and at the
-march's width, a methanation likelihood through them, the RK4 likelihood
+march's width (and their refusal of inputs autograd tracks), a methanation likelihood through them, the RK4 likelihood
 kernel with and without its population axis, the ladder and merge kernels
 under the ensemble's population axis (unaligned rows, K = 1 and 200, the
 merge's zero-count runs where it cuts its pieces) and replayed in one
@@ -14,8 +14,11 @@ bit, with their launch accounting; block granularity against sweep
 granularity; the autograd gradients and a MAP estimate on the card
 against the CPU's; a checkpoint taken inside a graphed run resumed
 bit-equal in each format, the Robertson ``bdf2`` march graphed against
-eager, MM ``dopri5`` to gamma = 1, and the blocked methanation engine at
-the flagship's full width and depth against the lanes-major one.
+eager, MM ``dopri5`` to gamma = 1, the blocked methanation engine at
+the flagship's full width and depth against the lanes-major one, and the
+steady methanation march (through the kernels against the plain loops at
+full width; its implicit-function adjoint against the CPU's; the cd/ad
+Jacobians and the cr/babe solvers; a graphed MALA run against eager).
 
 Every test here needs an NVIDIA GPU with nvcc and skips without one (the
 ``cuda`` fixture decides, inside the test). This file imports neither JAX
@@ -316,6 +319,25 @@ def test_thomas_wrappers_launch_or_raise(cuda, monkeypatch):
         tc.block_thomas_apply_tiled(LU, ms, C, r)
     with pytest.raises(RuntimeError, match="nvcc failed"):
         tc.block_thomas_apply_pl(LU, ms, C, r)
+
+
+def test_thomas_wrappers_refuse_tracked_inputs_on_the_card(cuda):
+    """The kernels have no backward: an input that autograd tracks is a
+    ValueError before anything launches, and the same call under no_grad
+    launches as usual."""
+    A, B, C, r = _blocks(cuda, 5, 32, 1)
+    LU, ms, _ = tc.block_thomas_factor_pl(A, B, C)
+    before = dict(_build.launch_counts)
+    for fn, args in ((tc.block_thomas_factor_pl, (A, B, C)),
+                     (tc.block_thomas_apply_pl, (LU, ms, C, r)),
+                     (tc.block_thomas_apply_tiled, (LU, ms, C, r))):
+        tracked = (args[0].clone().requires_grad_(True),) + args[1:]
+        with pytest.raises(ValueError, match="no backward"):
+            fn(*tracked)
+    assert dict(_build.launch_counts) == before
+    with torch.no_grad():
+        x = tc.block_thomas_apply_tiled(LU.requires_grad_(True), ms, C, r)
+    assert torch.equal(x, tc.block_thomas_apply_tiled(LU.detach(), ms, C, r))
 
 
 def test_methanation_likelihood_launches_the_thomas_kernels(cuda):
@@ -648,6 +670,11 @@ _STATE_FIELDS = ("particles", "log_lik", "gamma", "step", "ess",
                  "mh_ratio", "total_lik_evals", "log_evidence")
 
 
+# The steady march's small configuration (tests/test_methanation_grad.py's).
+_STEADY_SMALL = dict(n_conditions=3, nx=15, n_steps=40, growth=1.3,
+                     particle_chunk=4, newton_iters=3, march="steady")
+
+
 def _graph_case(case, cuda):
     """(graphed run, eager run) of one path, each a function of a seed."""
     if case in ("mm", "mm_mala", "mm_hmc"):
@@ -663,6 +690,14 @@ def _graph_case(case, cuda):
             n_conditions=3, nx=11, n_steps=12, growth=1.6, jac_stride=3,
             dense_tail=3, device=cuda)
         cfg = SMCConfig(n_particles=64, mh_steps=2, mh_steps_final=4)
+        return (make_full_run_on_device(m, cfg),
+                lambda seed: _eager_run(m, cfg, seed))
+    if case == "methanation_steady_mala":
+        from smc_tpu_torch.models.methanation import MethanationModel
+        m = MethanationModel.default(**dict(_STEADY_SMALL,
+                                            particle_chunk=64), device=cuda)
+        cfg = SMCConfig(n_particles=64, mutation="mala", mh_steps=2,
+                        mh_steps_final=3)
         return (make_full_run_on_device(m, cfg),
                 lambda seed: _eager_run(m, cfg, seed))
     from smc_tpu_torch import Prior, make_ensemble_run
@@ -688,7 +723,7 @@ def _graph_case(case, cuda):
 
 @pytest.mark.parametrize("case", ["mm", "ensemble", "ensemble_pallas",
                                   "methanation", "mm_mala", "mm_hmc",
-                                  "ensemble_mala"])
+                                  "ensemble_mala", "methanation_steady_mala"])
 def test_graphed_run_is_bit_equal_to_the_eager_composition(cuda, case):
     """The graphed entry point (each piece of a step one CUDA graph replay)
     and the eager composition of the same pieces give the same final state,
@@ -943,3 +978,96 @@ def test_blocked_engine_at_flagship_depth_matches_lanes_major(cuda):
     assert m.nx == 51 and m.cond.n_data == 30 and m.n_steps == 48
     assert bool(torch.isfinite(ll_b).all())
     torch.testing.assert_close(flows_b, flows_l, rtol=1e-3, atol=5e-3)
+
+
+# ---- the steady march and its adjoint ------------------------------------
+
+def test_steady_march_through_the_kernels_matches_the_plain_loops(cuda):
+    """The steady march at the flagship's full width (nx = 51, 30
+    conditions) through the block-Thomas kernels against solver="thomas"
+    (the plain loops) on the card: 14 factor and 42 tiled-apply launches
+    per chunk, the same failed lanes, flows within 0.05 sccm, at N = 64
+    posterior-bulk thetas."""
+    import dataclasses
+
+    from smc_tpu_torch.models.methanation import MethanationModel
+    m = MethanationModel.default(march="steady", particle_chunk=64,
+                                 device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    truth = torch.tensor([m.base_params[i] for i in m.est_idx], device=cuda)
+    theta = truth * (1.0 + 0.005 * torch.randn(
+        (64, len(m.est_idx)), generator=gen, device=cuda))
+    _build.reset_launch_counts()
+    ll, flows = m.log_likelihood(theta)
+    counts = dict(_build.launch_counts)
+    assert counts["thomas_factor"] == 14
+    assert counts["thomas_apply_tiled"] == 42
+    assert counts["thomas_apply"] == 0
+    _, want = dataclasses.replace(m, solver="thomas").log_likelihood(theta)
+    assert dict(_build.launch_counts) == counts
+    assert bool(torch.isfinite(ll).all())
+    assert torch.equal(flows == -10000.0, want == -10000.0)
+    ok = want != -10000.0
+    assert float((flows - want)[ok].abs().max()) <= 0.05
+
+
+def _steady_pair(cuda, **kw):
+    """The small steady model on the card and on the CPU over the same
+    arrays (the CPU's observations)."""
+    from smc_tpu_torch.convert import methanation_model_from_numpy
+    from smc_tpu_torch.models.methanation import (MethanationModel,
+                                                  condition_table_numpy)
+    cfg = dict(_STEADY_SMALL, **kw)
+    cpu = MethanationModel.default(device="cpu", **cfg)
+    cfg.pop("n_conditions")
+    card = methanation_model_from_numpy(
+        condition_table_numpy(3, nx=15), cpu.obs.numpy(), cpu.prior,
+        device=cuda, **cfg)
+    return card, cpu
+
+
+_STEADY_THETA = ((13.04, 52.2e3, 1.147e5, 96.7e3, 5.0),
+                 (15.0, 52.5e3, 1.5e5, 9.7e4, 4.0),
+                 (11.0, 51.9e3, 0.9e5, 9.6e4, 6.0),
+                 (13.0, 52.0e3, 2.0e5, 9.8e4, 5.0))
+
+
+def test_steady_adjoint_on_the_card_matches_the_cpu(cuda):
+    """The implicit-function adjoint on the card against the CPU port on
+    the same draws: the likelihoods within 1e-5 relative, each gradient
+    component within 1% of the parameter's largest |gradient| over the
+    draws (the adjoint's regularized system amplifies the devices'
+    rounding; the CPU port is within 3e-4 of jax.grad)."""
+    card, cpu = _steady_pair(cuda)
+    grads = []
+    for m, dev in ((card, cuda), (cpu, torch.device("cpu"))):
+        th = torch.tensor(_STEADY_THETA, device=dev).requires_grad_(True)
+        ll, _ = m.log_likelihood(th)
+        (g,) = torch.autograd.grad(ll.sum(), th)
+        grads.append((ll.detach().cpu(), g.cpu()))
+    (ll_g, g_g), (ll_c, g_c) = grads
+    torch.testing.assert_close(ll_g, ll_c, rtol=1e-5, atol=0)
+    assert bool(torch.isfinite(g_g).all())
+    scale = g_c.abs().amax(dim=0)
+    assert bool(((g_g - g_c).abs() <= 1e-2 * scale).all()), (g_g, g_c)
+
+
+@pytest.mark.parametrize("jac_mode,solver", [("cd", "auto"), ("ad", "auto"),
+                                             ("full", "cr"),
+                                             ("full", "babe")])
+def test_steady_options_run_on_the_card(cuda, jac_mode, solver):
+    """The tangent-built Jacobians and the cr/babe solvers on the card:
+    flows within 1e-3 sccm of the default (full, the kernels) at the same
+    draws, and a finite adjoint gradient."""
+    import dataclasses
+    card, _ = _steady_pair(cuda)
+    other = dataclasses.replace(card, jac_mode=jac_mode, solver=solver)
+    th = torch.tensor(_STEADY_THETA, device=cuda)
+    _, want = card.log_likelihood(th)
+    t = th.clone().requires_grad_(True)
+    ll, got = other.log_likelihood(t)
+    (g,) = torch.autograd.grad(ll.sum(), t)
+    assert bool((want != -10000.0).all())
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-3)
+    assert bool(torch.isfinite(g).all())
+

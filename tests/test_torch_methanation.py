@@ -244,23 +244,31 @@ def test_failed_or_degenerate_particles_never_give_nan(pair):
 
 
 def test_what_is_not_ported_raises():
-    """The steady march, the tangent-built Jacobians, the cr/babe solvers
-    and the lane mesh still refuse (ROADMAP Queue 1 items 7, 8, 12); an
-    unknown solver or engine is an error. The blocked engine and the CSV
-    readers are ported (tests/test_torch_blocked.py,
-    tests/test_torch_io.py)."""
+    """Only the lane mesh still refuses (ROADMAP Queue 1 item 12); the
+    steady march, the tangent-built Jacobians and the cr/babe solvers
+    construct (tests/test_torch_steady.py, test_torch_solvers.py); an
+    unknown solver, engine, march or Jacobian mode is an error, and so is
+    babe at an even nx. The blocked engine and the CSV readers are ported
+    (tests/test_torch_blocked.py, tests/test_torch_io.py)."""
     cond = TM.make_condition_table(NC, nx=NX, device="cpu")
     base = dict(cond=cond, obs=torch.zeros((5, NC)),
                 prior=TM.methanation_prior(device="cpu"), nx=NX)
-    for kw in (dict(march="steady"),
-               dict(jac_mode="cd"), dict(jac_mode="ad"),
-               dict(solver="cr"), dict(solver="babe"),
-               dict(lane_mesh=object())):
-        with pytest.raises(NotImplementedError):
-            TM.MethanationModel(**base, **kw)
-    for kw in (dict(solver="qr"), dict(engine="dense")):
+    with pytest.raises(NotImplementedError):
+        TM.MethanationModel(**base, lane_mesh=object())
+    for kw in (dict(march="steady"), dict(jac_mode="cd"),
+               dict(jac_mode="ad"), dict(solver="cr"), dict(solver="babe"),
+               dict(march="steady", jac_mode="ad", solver="babe")):
+        m = TM.MethanationModel(**base, **kw)
+        assert all(getattr(m, k) == v for k, v in kw.items())
+    for kw in (dict(solver="qr"), dict(engine="dense"),
+               dict(march="implicit"), dict(jac_mode="fd")):
         with pytest.raises(ValueError):
             TM.MethanationModel(**base, **kw)
+    even = dict(base, cond=TM.make_condition_table(NC, nx=10, device="cpu"),
+                nx=10)
+    with pytest.raises(ValueError, match="odd NX"):
+        TM.MethanationModel(**even, solver="babe")
+    assert TM.MethanationModel(**even, solver="cr").nx == 10
     assert TM.MethanationModel(**base, engine="blocked").engine == "blocked"
 
 

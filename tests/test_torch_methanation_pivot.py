@@ -55,7 +55,8 @@ def test_march_final_state_and_engine_options():
     """bdf_march_bl itself on a shared start: the per-step modified Newton
     (jac_stride 1), the lagged march and the pivoted full Newton converge to
     the same final state (they solve the same BDF equations), order 1 runs,
-    and a bad lag split is refused."""
+    a bad lag split is refused, and the tangent-built Jacobian slots give
+    the closed-form march's state."""
     _, tm = methanation_pair(NC, NX, n_steps=12, growth=1.6, jac_stride=3,
                              dense_tail=3)
     rows, jac, y0 = tm._lane_problem(torch.tensor([TM.KIN_TRUE]))
@@ -78,11 +79,15 @@ def test_march_final_state_and_engine_options():
     with pytest.raises(ValueError):
         tdf.bdf_march_bl(rows, y0, dts, pivot=False, jac_stride=5,
                          n_dense=0, **kw)
-    with pytest.raises(NotImplementedError):
-        tdf.bdf_march_bl(rows, y0, dts, pivot=False, newton_iters=2)
-    with pytest.raises(NotImplementedError):
-        tdf.bdf_march_bl(rows, y0, dts, pivot=False,
-                         analytic_jac=lambda *a: {2: jac(*a)[2]})
+    # Slots the callback does not supply are built by tangent passes: none
+    # ("ad") or only slot 2 give the closed-form march's state, to the
+    # blocks' fp32 rounding carried through the march.
+    y_ref = tdf.bdf_march_bl(rows, y0, dts, pivot=False, newton_iters=2,
+                             analytic_jac=jac)
+    for partial in (None, lambda *a: {2: jac(*a)[2]}):
+        y_tan = tdf.bdf_march_bl(rows, y0, dts, pivot=False, newton_iters=2,
+                                 analytic_jac=partial)
+        assert ((y_tan - y_ref).abs() / scale).max() < 1e-4
 
 
 def test_default_model_and_outputs():

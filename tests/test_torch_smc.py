@@ -206,9 +206,12 @@ def test_degenerate_covariance_rejects_instead_of_nan(models):
 
 def test_unported_options_raise(models):
     """What still refuses: a gradient kind on a CUDA kernel's likelihood
-    (ValueError: the kernels have no backward) and the methanation
-    likelihood under a gradient kind (item 8, NotImplementedError). MM
-    ``method="dopri5"`` refused until item 11 ported it; it builds now."""
+    (ValueError: the kernels have no backward), the MM kernels' and the
+    methanation transient march's on its default solver (the block-Thomas
+    kernels). MM ``method="dopri5"`` refused until item 11 ported it; it
+    builds now. The methanation likelihood refused every gradient until
+    item 8; ``tests/test_torch_methanation_grad.py`` tests the ones it
+    has now."""
     from smc_tpu_torch.models import methanation as TM
     from smc_tpu_torch.models.michaelis_menten import MichaelisMentenModel
     _, tm = models
@@ -224,7 +227,7 @@ def test_unported_options_raise(models):
         TM.condition_table_numpy(2, nx=11), np.zeros((5, 2), np.float32),
         TM.methanation_prior(device="cpu"), nx=11, device="cpu")
     xm = meth.prior.sample(convert.TorchDraws(0, "cpu"), 16)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(ValueError, match="no backward"):
         mutate(None, xm, torch.zeros(16), torch.tensor(0.5),
                meth.log_likelihood, meth.prior, cfg)
 
