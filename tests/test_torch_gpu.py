@@ -18,7 +18,11 @@ eager, MM ``dopri5`` to gamma = 1, the blocked methanation engine at
 the flagship's full width and depth against the lanes-major one, and the
 steady methanation march (through the kernels against the plain loops at
 full width; its implicit-function adjoint against the CPU's; the cd/ad
-Jacobians and the cr/babe solvers; a graphed MALA run against eager).
+Jacobians and the cr/babe solvers; a graphed MALA run against eager),
+and the operations layer: the CLI's run on the main path, its resume
+from each checkpoint format and a ``run_resilient`` recovery, each
+bit-equal to ``run_smc``; a ``--profile`` trace naming kernels 1-3; the
+card's memory report; an NCCL process group of one.
 
 Every test here needs an NVIDIA GPU with nvcc and skips without one (the
 ``cuda`` fixture decides, inside the test). This file imports neither JAX
@@ -1071,3 +1075,159 @@ def test_steady_options_run_on_the_card(cuda, jac_mode, solver):
     torch.testing.assert_close(got, want, rtol=0, atol=1e-3)
     assert bool(torch.isfinite(g).all())
 
+
+
+# -- the operations layer and the CLI on the card ---------------------------
+
+_N_CLI = 100_000
+
+
+def _same_run(got, want):
+    for f in _STATE_FIELDS:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert torch.equal(got.key.generator.get_state(),
+                       want.key.generator.get_state())
+
+
+@pytest.fixture(scope="module")
+def mm_main_run():
+    """The MM main path (pallas_exact, N = 1e5, seed 0) through run_smc:
+    what the CLI's runs on the card are held to."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA")
+    from smc_tpu_torch import run_smc
+    m = MichaelisMentenModel.default(method="pallas_exact", device="cuda")
+    cfg = SMCConfig(n_particles=_N_CLI)
+    return m, cfg, run_smc(m, cfg, 0, verbose=False)
+
+
+def _only_dir(path):
+    import os
+    (name,) = os.listdir(path)
+    return os.path.join(path, name)
+
+
+def _checkpoint(run, name):
+    import glob
+    import os
+    (path,) = glob.glob(os.path.join(run, "checkpoints", name + ".*"))
+    return path
+
+
+@pytest.mark.parametrize("fmt", ["npz", "auto", "smcd"])
+def test_cli_run_and_resume_are_the_library_run_on_the_card(
+        cuda, tmp_path, mm_main_run, fmt):
+    """``smc-tpu-torch run`` on the main path (pallas_exact, N = 1e5) ends
+    bit-equal to run_smc with the same seed, and a resume from its step-3
+    checkpoint in each format ('auto' = the native .smck) does too. The
+    resume parser takes only rk4/exact (as the reference's), so the
+    pallas_exact run resumes through run_with_artifacts, the body of the
+    resume command."""
+    from smc_tpu_torch.cli import main
+    from smc_tpu_torch.io.checkpoint import load_state
+    from smc_tpu_torch.io.rundir import RunDir
+    from smc_tpu_torch.runner import run_with_artifacts
+    model, cfg, want = mm_main_run
+    assert main(["run", "--model", "mm", "--mm-method", "pallas_exact",
+                 "--particles", str(_N_CLI), "--checkpoint-format", fmt,
+                 "--outdir", str(tmp_path / "a"), "--quiet",
+                 "--no-plots"]) == 0
+    run = _only_dir(tmp_path / "a")
+    _same_run(load_state(_checkpoint(run, "final"), device=cuda), want)
+    ck = _checkpoint(run, "step3")
+    assert ck.endswith({"npz": ".npz", "auto": ".smck", "smcd": ".smcd"}[fmt])
+    final, rd = run_with_artifacts(
+        model, cfg, None, rundir=RunDir(root=str(tmp_path / "b"),
+                                        tag="mm_resume"),
+        resume_from=ck, plots_enabled=False, verbose=False,
+        checkpoint_format=fmt)
+    _same_run(final, want)
+    _same_run(load_state(_checkpoint(rd.path, "final"), device=cuda), want)
+
+
+def test_cli_resume_command_on_the_card(cuda, tmp_path):
+    """The resume command itself on the card (MM exact, N = 20,000): the
+    resumed run's final checkpoint is the uninterrupted run's."""
+    from smc_tpu_torch import run_smc
+    from smc_tpu_torch.cli import main
+    from smc_tpu_torch.io.checkpoint import load_state
+    args = ["--model", "mm", "--mm-method", "exact", "--particles", "20000",
+            "--quiet", "--no-plots"]
+    assert main(["run", "--outdir", str(tmp_path / "a")] + args) == 0
+    ck = _checkpoint(_only_dir(tmp_path / "a"), "step2")
+    assert main(["resume", "--checkpoint", ck, "--outdir",
+                 str(tmp_path / "b")] + args) == 0
+    want = run_smc(MichaelisMentenModel.default(method="exact", device=cuda),
+                   SMCConfig(n_particles=20_000), 0, verbose=False)
+    got = load_state(_checkpoint(_only_dir(tmp_path / "b"), "final"),
+                     device=cuda)
+    _same_run(got, want)
+
+
+def test_run_resilient_recovers_inside_a_graphed_run(cuda, tmp_path,
+                                                     mm_main_run):
+    """A failure injected after step 2 of a graphed run: run_resilient
+    reloads the step-2 checkpoint onto the card, captures its graphs anew
+    and ends bit-equal to the uninterrupted run."""
+    from smc_tpu_torch.utils.resilient import run_resilient
+    model, cfg, want = mm_main_run
+    armed = [True]
+
+    def boom(s):
+        if armed[0] and int(s.step) == 2:
+            armed[0] = False
+            raise RuntimeError("injected")
+
+    got = run_resilient(model, cfg, 0, checkpoint=str(tmp_path / "ck.npz"),
+                        callback=boom, retry_delay_s=0.0, verbose=False)
+    assert not armed[0]
+    _same_run(got, want)
+
+
+def test_cli_profile_writes_a_trace_naming_the_main_kernels(cuda, tmp_path):
+    import glob
+    import json
+    from smc_tpu_torch.cli import main
+    assert main(["run", "--model", "mm", "--mm-method", "pallas_exact",
+                 "--particles", "20000", "--profile", str(tmp_path / "p"),
+                 "--outdir", str(tmp_path / "o"), "--quiet",
+                 "--no-plots"]) == 0
+    (path,) = glob.glob(str(tmp_path / "p" / "trace_*.json"))
+    with open(path) as f:
+        names = " ".join(str(e.get("name")) for e in
+                         json.load(f)["traceEvents"])
+    for kernel in ("mm_exact_kernel", "ladder_kernel", "merge_kernel"):
+        assert kernel in names, kernel
+
+
+def test_device_memory_report_on_the_card(cuda):
+    from smc_tpu_torch.utils.memory import device_memory_report, \
+        hbm_utilization
+    x = torch.empty(2 ** 28, dtype=torch.uint8, device=cuda)
+    rep = device_memory_report()
+    assert len(rep) == torch.cuda.device_count() >= 1
+    assert rep[0]["bytes_in_use"] >= x.numel()
+    assert rep[0]["bytes_limit"] > rep[0]["bytes_free"] > 0
+    u = hbm_utilization()
+    assert u is not None and 0.0 < u <= 1.0
+    del x
+
+
+def test_initialize_distributed_nccl_world_size_one(cuda):
+    import socket
+    import torch.distributed as dist
+    from smc_tpu_torch.parallel.multihost import (initialize_distributed,
+                                                  is_primary_host)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    try:
+        assert initialize_distributed(f"tcp://127.0.0.1:{port}", 1, 0,
+                                      device=cuda) == 1
+        assert dist.get_backend() == "nccl"
+        group = dist.group.WORLD
+        assert initialize_distributed(device=cuda) == 1
+        assert dist.group.WORLD is group and is_primary_host()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()

@@ -247,3 +247,14 @@ def torch_march_final_state(tm, theta):
                    jac_stride=tm.jac_stride, n_dense=tm._n_dense_eff,
                    reuse_iters=tm.reuse_iters, dense_tail=tm.dense_tail,
                    solver=tm.solver).numpy()
+
+
+def assert_same_run(got, want):
+    """Two port states are one run's: every tensor field and the
+    generator's state bit-equal."""
+    from smc_tpu_torch.convert import STATE_FIELDS
+    for f in STATE_FIELDS:
+        if f != "key":
+            assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert torch.equal(got.key.generator.get_state(),
+                       want.key.generator.get_state())
