@@ -22,6 +22,9 @@ pieces run eagerly. Runs checkpoint and resume bit for bit (``io/``:
 ``.npz``, the native runtime's ``.smck``, ``.smcd`` in row slabs; the
 JAX package's files load too), and user ODE and index-1 DAE models run
 through ``models/generic.py`` (``rk4``, ``dopri5``, implicit ``bdf2``).
+One run spans several processes, one per GPU (``parallel/``: a
+``DeviceMesh`` of particles x data, explicit collectives on
+``torch.distributed``; ``psharding=`` on the entry points).
 """
 import torch
 

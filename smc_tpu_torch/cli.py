@@ -12,6 +12,16 @@
 
 On a host without a card, ``--device cuda`` fails with a message and a
 nonzero exit; ``--device cpu`` runs the kernels' plain PyTorch versions.
+
+``--mesh N`` on ``run``, ``resume`` and ``ensemble`` splits the particles
+over N processes, one per device, started by ``torchrun``:
+
+  torchrun --nproc-per-node 4 -m smc_tpu_torch.cli run --mesh 4 --device cpu
+  torchrun --nproc-per-node 1 -m smc_tpu_torch.cli run --mesh 1
+
+(NCCL for CUDA, each process on ``cuda:<LOCAL_RANK>``; gloo for the CPU).
+A process count other than N exits nonzero with a message. Only the first
+process prints and writes.
 """
 from __future__ import annotations
 
@@ -19,9 +29,6 @@ import argparse
 import sys
 
 import numpy as np
-
-_ITEM_12 = "(ROADMAP Queue 1 item 12: multi-GPU)"
-
 
 def _add_device(p):
     p.add_argument("--device", default="cuda",
@@ -40,13 +47,16 @@ def _add_common(p):
     p.add_argument("--no-plots", action="store_true")
     p.add_argument("--quiet", action="store_true")
     p.add_argument("--mesh", type=int, default=0,
-                   help="shard the particle axis over this many devices "
-                        "(0 = single device; not ported yet)")
+                   help="shard the particle axis over this many devices, "
+                        "one process each, under torchrun --nproc-per-node "
+                        "N (0 = single device)")
     p.add_argument("--resampling", default="residual_systematic",
                    choices=["residual_systematic", "ring", "systematic",
                             "stratified", "multinomial"],
-                   help="resampling scheme; 'ring' (the sharded "
-                        "redistribution) is not ported yet")
+                   help="resampling scheme; 'ring' = residual-systematic "
+                        "with O(N/S)-per-device ring-exchange "
+                        "redistribution on sharded runs (bitwise-identical "
+                        "results)")
     p.add_argument("--mutation", default="rwm",
                    choices=["rwm", "mala", "hmc"],
                    help="mutation kernel: the reference's adaptive RW-"
@@ -88,14 +98,36 @@ def _add_common(p):
     _add_device(p)
 
 
-def _refuse_multi_gpu(args):
-    if args.mesh:
-        raise NotImplementedError(f"--mesh {args.mesh} is not ported yet "
-                                  f"{_ITEM_12}")
-    if args.resampling == "ring":
-        raise NotImplementedError("--resampling ring (the sharded ring "
-                                  f"redistribution) is not ported yet "
-                                  f"{_ITEM_12}")
+def _mesh(args):
+    """The (N, 1) mesh of ``--mesh N`` over the processes torchrun started
+    (None without ``--mesh``). Exits with a message unless exactly N
+    processes are up. On CUDA each process takes ``cuda:<LOCAL_RANK>``
+    (``args.device`` is rewritten)."""
+    if not args.mesh:
+        return None
+    import os
+    import torch
+    import torch.distributed as dist
+    from smc_tpu_torch.parallel.mesh import make_mesh
+    from smc_tpu_torch.parallel.multihost import initialize_distributed
+    dev = torch.device(args.device)
+    if dev.type == "cuda" and dev.index is None and "LOCAL_RANK" in os.environ:
+        dev = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+        torch.cuda.set_device(dev)
+        args.device = str(dev)
+    n = initialize_distributed(device=dev)
+    if not dist.is_initialized() or n != args.mesh:
+        raise SystemExit(
+            f"--mesh {args.mesh} needs {args.mesh} processes, one per "
+            f"device, and {n if dist.is_initialized() else 'no'} process "
+            f"group is up: run torchrun --nproc-per-node {args.mesh} -m "
+            f"smc_tpu_torch.cli ... --mesh {args.mesh}")
+    return make_mesh(args.mesh, device=dev)
+
+
+def _primary() -> bool:
+    from smc_tpu_torch.parallel.multihost import is_primary_host
+    return is_primary_host()
 
 
 def _refuse_gradient(args, why: str):
@@ -172,7 +204,6 @@ def _build_model(args):
 
 def _cfg(args):
     from smc_tpu_torch.config import SMCConfig
-    _refuse_multi_gpu(args)
     return SMCConfig(n_particles=args.particles, max_steps=args.max_steps,
                      mh_steps=args.mh_steps,
                      mh_steps_final=args.mh_steps_final,
@@ -196,19 +227,39 @@ def _print_run(final, rd, p, names, with_evidence: bool = True):
 def cmd_run(args):
     from smc_tpu_torch.utils.metrics import profile_trace
     cfg = _cfg(args)
+    mesh = _mesh(args)
     model, truth = _build_model(args)
     with profile_trace(args.profile):
-        return _run_inner(args, model, truth, cfg)
+        return _run_inner(args, model, truth, cfg, mesh)
 
 
-def _run_inner(args, model, truth, cfg):
+def _run_inner(args, model, truth, cfg, mesh=None):
     from smc_tpu_torch.io.rundir import RunDir
     from smc_tpu_torch.runner import run_with_artifacts
 
-    if args.device_loop:
+    if args.device_loop or mesh is not None:
+        # As the JAX command: a sharded run writes the posterior CSV only.
         from smc_tpu_torch.io.csvio import save_posterior_csv
-        from smc_tpu_torch.smc.driver import run_smc_on_device
-        final = run_smc_on_device(model, cfg, args.seed)
+        from smc_tpu_torch.smc.driver import (init_state, run_smc,
+                                              run_smc_on_device)
+        psh = None
+        if mesh is not None:
+            from smc_tpu_torch.parallel.mesh import particle_sharding
+            psh = particle_sharding(mesh)
+        state = init_state(args.seed, model, cfg, psharding=psh)
+        if args.device_loop:
+            final = run_smc_on_device(model, cfg, args.seed, state=state,
+                                      psharding=psh)
+        else:
+            final = run_smc(model, cfg, args.seed, state=state,
+                            verbose=not args.quiet,
+                            granularity=args.granularity,
+                            stop_file=args.stop_file, psharding=psh)
+        if mesh is not None:
+            from smc_tpu_torch.parallel.mesh import gather_state
+            final = gather_state(final, mesh)
+            if not _primary():
+                return 0
         p = final.particles.cpu().numpy()
         rd = RunDir(root=args.outdir, tag=args.model)
         save_posterior_csv(rd.file("Posterior_Distribution.csv"), p,
@@ -230,6 +281,7 @@ def cmd_resume(args):
     from smc_tpu_torch.io.rundir import RunDir
     from smc_tpu_torch.runner import run_with_artifacts
     cfg = _cfg(args)
+    mesh = _mesh(args)
     model, truth = _build_model(args)
     # The reference's resume forwards neither --max-restarts nor
     # --stop-file (smc_tpu/cli.py:225-245); kept.
@@ -239,8 +291,9 @@ def cmd_resume(args):
         true_values=truth, resume_from=args.checkpoint,
         plots_enabled=not args.no_plots, verbose=not args.quiet,
         granularity=args.granularity,
-        checkpoint_format=args.checkpoint_format)
-    _print_run(final, rd, None, None, with_evidence=False)
+        checkpoint_format=args.checkpoint_format, mesh=mesh)
+    if rd is not None:
+        _print_run(final, rd, None, None, with_evidence=False)
     return 0
 
 
@@ -269,6 +322,7 @@ def cmd_ensemble(args):
     from smc_tpu_torch.priors import Prior
     from smc_tpu_torch.smc.ensemble import run_ensemble_on_device
     cfg = _cfg(args)
+    mesh = _mesh(args)
     dev = torch.device(args.device)
     ts, obs0, s0 = generate_mm_pseudo_data()
     # D noisy copies of the pseudo-data, the noise from a CPU generator
@@ -282,7 +336,12 @@ def cmd_ensemble(args):
                                  method=args.method)
     prior = Prior.uniform([0.0, 0.0, 0.0], [10.0, 10.0, 10.0], device=dev)
     states = run_ensemble_on_device(args.seed, prior, loglik, obs.to(dev),
-                                    args.datasets, cfg)
+                                    args.datasets, cfg, mesh=mesh)
+    if mesh is not None:
+        from smc_tpu_torch.parallel.mesh import gather_state
+        states = gather_state(states, mesh)
+        if not _primary():
+            return 0
     p = states.particles.cpu().numpy()
     gamma = states.gamma.cpu().tolist()
     steps = states.step.cpu().tolist()

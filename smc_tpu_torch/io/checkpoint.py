@@ -30,6 +30,12 @@ threefry data); its array readers read every field.
 
 Both single states and ensemble states (a leading dataset axis D on every
 field) go through the same functions.
+
+A run sharded over a mesh (parallel/mesh.py) writes the same files: its
+processes gather the state (``gather_state``) and the primary one writes
+it. ``load_state(path, sharding=psh)`` reads only this process's rows; a
+``.smcd`` field is read from its memory map slab by slab, so no process
+holds the whole particle array on the host.
 """
 from __future__ import annotations
 
@@ -146,20 +152,34 @@ def _put_slabbed_from_memmap(mm: np.memmap, device,
     return out
 
 
-def _load_state_chunked(path: str, device,
-                        max_bytes: int = SLAB_BYTES) -> SMCState:
+def _rows_of(sharding, arrays: dict):
+    """``name -> index`` of this process's part of each field of a whole
+    state whose fields are ``arrays`` (anything with ``.shape``)."""
+    ens = len(arrays["gamma"].shape) == 1
+    n = arrays["particles"].shape[-2]
+    d = arrays["gamma"].shape[0] if ens else 0
+    return lambda name: sharding.field_index(name, ens, n, d)
+
+
+def _load_state_chunked(path: str, device, max_bytes: int = SLAB_BYTES,
+                        sharding=None) -> SMCState:
     with open(os.path.join(path, "meta.json")) as fh:
         meta = json.load(fh)
-    d = {}
+    d, maps = {}, {}
     for spec in meta["fields"]:
         name = spec["name"]
         if spec["kind"] == "npy":
-            mm = np.load(os.path.join(path, name + ".npy"), mmap_mode="r")
-            d[name] = _put_slabbed_from_memmap(mm, device, max_bytes)
-            del mm
+            maps[name] = np.load(os.path.join(path, name + ".npy"),
+                                 mmap_mode="r")
         else:
             d[name] = np.asarray(meta["scalars"][name],
                                  dtype=np.dtype(spec["dtype"]))
+    index = None if sharding is None else _rows_of(sharding, {**d, **maps})
+    for name, mm in maps.items():
+        if index is not None:
+            mm = mm[index(name)]
+        d[name] = _put_slabbed_from_memmap(mm, device, max_bytes)
+    del maps
     d["key"] = np.asarray(meta["key"], dtype=np.uint32)
     return _unflatten(d, device)
 
@@ -168,18 +188,24 @@ def load_state(path: str, sharding=None, device="cuda") -> SMCState:
     """Load any of the three formats, written by either package, onto
     ``device``. A ``.smcd`` directory is read in row slabs of at most
     ``SLAB_BYTES`` (host memory O(slab)); ``.npz`` and ``.smck`` are read
-    whole. ``sharding`` (a state over several devices) is not ported and
-    raises."""
-    if sharding is not None:
-        raise NotImplementedError(
-            "sharding= (one state over several GPUs) is not ported yet "
-            "(ROADMAP Queue 1 item 12: multi-GPU)")
+    whole. ``sharding`` (``parallel.mesh.particle_sharding`` of a mesh,
+    or the mesh): this process's rows of the state only (for ``.smcd``
+    only they are read from the file)."""
     dev = resolve_device(device)
     path = str(path)
+    if sharding is not None:
+        from smc_tpu_torch.parallel.mesh import as_sharding
+        sharding = as_sharding(sharding)
     if os.path.isdir(path) or path.endswith(".smcd"):
-        return _load_state_chunked(path, dev)
+        return _load_state_chunked(path, dev, sharding=sharding)
     if path.endswith(".smck"):
         from smc_tpu_torch.runtime import load_snapshot
-        return _unflatten(load_snapshot(path), dev)
-    with np.load(path if path.endswith(".npz") else path + ".npz") as z:
-        return _unflatten({k: z[k] for k in z.files}, dev)
+        d = load_snapshot(path)
+    else:
+        with np.load(path if path.endswith(".npz") else path + ".npz") as z:
+            d = {k: z[k] for k in z.files}
+    if sharding is not None:
+        index = _rows_of(sharding, d)
+        d = {k: (np.ascontiguousarray(v[index(k)])
+                 if k != "key" and index(k) else v) for k, v in d.items()}
+    return _unflatten(d, dev)

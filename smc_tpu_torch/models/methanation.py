@@ -33,7 +33,8 @@ the plain "thomas", "cr" and "babe" solvers. The per-system engine
 (``engine="blocked"``, ``ops/dae.py``: local Jacobians by
 ``torch.func.jacfwd``, block-Thomas through ``ops/linalg.py``) is the
 oracle of the lanes-major one. The CSV readers and writer of the condition
-table. The lane mesh is not ported yet and raises ``NotImplementedError``.
+table. The lane mesh (``lane_mesh``): the conditions split over a mesh's
+"data" axis, each process marching its share of its particle rows' lanes.
 """
 from __future__ import annotations
 
@@ -867,7 +868,10 @@ class MethanationModel:
     ptc_floor: float = 2.0
     ptc_lag: int = 2
     ptc_reuse_iters: int = 1
-    # Multi-device lane sharding is not ported.
+    # A (particles, data) mesh (parallel/mesh.py::make_mesh): each process
+    # of a "data" group marches n_data / n_d of the conditions for the
+    # particle rows it is given; the log-likelihood is summed over the
+    # group. None: every condition here.
     lane_mesh: object = None
 
     def __post_init__(self):
@@ -881,9 +885,10 @@ class MethanationModel:
             raise ValueError(f"unknown jac_mode {self.jac_mode!r}; one of "
                              f"{JAC_MODES}")
         if self.lane_mesh is not None:
-            raise NotImplementedError(
-                "lane_mesh is not ported yet (ROADMAP Queue 1 item 12: "
-                "multi-GPU)")
+            n_d = self.lane_mesh.size(1)
+            if self.cond.n_data % n_d:
+                raise ValueError(f"{self.cond.n_data} conditions do not "
+                                 f"divide over {n_d} data ranks")
         if resolve_solver(self.solver) == "babe" and self.nx % 2 == 0:
             raise ValueError(f"babe solver requires odd NX, got {self.nx}")
 
@@ -1060,8 +1065,42 @@ class MethanationModel:
                 "block-Thomas kernels have no backward, as the JAX "
                 "package's Pallas kernels have none; use march='steady' or "
                 "solver='thomas'")
+        if self.lane_mesh is not None:
+            return self._lane_mesh_log_likelihood(theta)
         flows, sigma = self._flows_and_sigma(theta)
         return self._ll_from_flows(flows, sigma), flows
+
+    @functools.cached_property
+    def _lane_share(self):
+        """(this process's model over its share of the conditions, the
+        mesh's "data" axis)."""
+        from smc_tpu_torch.parallel.mesh import particle_sharding
+        ax = particle_sharding(self.lane_mesh).data
+        per = self.cond.n_data // ax.size
+        mine = list(range(ax.rank * per, (ax.rank + 1) * per))
+        part = dataclasses.replace(self, cond=self.cond.select(mine),
+                                   obs=self.obs[:, mine], lane_mesh=None)
+        return part, ax
+
+    def _lane_mesh_log_likelihood(self, theta: torch.Tensor):
+        """``log_likelihood`` with the conditions split over the lane
+        mesh's "data" axis: this process marches its conditions for the
+        rows ``theta`` (N, n_est) it is given (kernels 6 and 8 on the
+        smaller lane count), its part of the Gaussian sum is all-reduced
+        over the axis, and the flows (N, 5, n_data) are all-gathered in
+        condition order. A failed lane carries its -10000 sentinel in the
+        flows every process returns; its term enters the sum once, from
+        the process that marched it. One process: the unsplit bits.
+
+        Differentiable (``march="steady"``): ``theta`` is the same on every
+        process of the axis, so its gradient is the sum of each process's
+        conditions' gradients (``Axis.replicated``), the same on all of
+        them, and the replicated rows take the same proposals."""
+        part, ax = self._lane_share
+        flows, sigma = part._flows_and_sigma(ax.replicated(theta))
+        ll = ax.sum(part._ll_from_flows(flows, sigma))
+        flows = torch.cat(list(ax.gather(flows).unbind(0)), dim=-1)
+        return torch.where(torch.isfinite(ll), ll, -torch.inf), flows
 
     def _flows_and_sigma(self, theta: torch.Tensor):
         """theta (N, n_est) -> (flows (N, 5, n_data), sigma (N,)): the part

@@ -71,29 +71,53 @@ launch_counts = {"mm_exact": 0, "mm_rk4": 0, "ladder": 0, "merge": 0,
                  "thomas_factor": 0, "thomas_apply": 0,
                  "thomas_apply_tiled": 0}
 
+# Collectives of a sharded run since the last reset (parallel/mesh.py):
+# per kind the calls and, under "<kind>_bytes", the bytes each rank put
+# in; "host_copies"/"host_copy_bytes" count the staging copies a gloo
+# communicator makes for an operation it cannot run on CUDA tensors.
+# Counted as the launches are, captures and replays included.
+collective_counts: dict = {}
+
 
 def reset_launch_counts() -> None:
     for k in launch_counts:
         launch_counts[k] = 0
+    collective_counts.clear()
+
+
+def count_collective(kind: str, nbytes: int) -> None:
+    collective_counts[kind] = collective_counts.get(kind, 0) + 1
+    key = kind + "_bytes"
+    collective_counts[key] = collective_counts.get(key, 0) + int(nbytes)
 
 
 @contextlib.contextmanager
 def launches_of(record: dict):
-    """Record into ``record`` the launches counted inside the block, and
-    take them back out of ``launch_counts`` (a capture or a warm-up)."""
+    """Record into ``record`` the launches (and, under ``("collective",
+    kind)`` keys, the collectives) counted inside the block, and take them
+    back out of the counts (a capture or a warm-up)."""
     before = dict(launch_counts)
+    before_c = dict(collective_counts)
     try:
         yield record
     finally:
         for k, v in launch_counts.items():
             record[k] = v - before[k]
             launch_counts[k] = before[k]
+        for k, v in collective_counts.items():
+            if v != before_c.get(k, 0):
+                record[("collective", k)] = v - before_c.get(k, 0)
+        collective_counts.clear()
+        collective_counts.update(before_c)
 
 
 def count_replay(record: dict) -> None:
     """One replay of a graph whose capture recorded ``record``."""
     for k, v in record.items():
-        launch_counts[k] += v
+        if isinstance(k, tuple):
+            collective_counts[k[1]] = collective_counts.get(k[1], 0) + v
+        else:
+            launch_counts[k] += v
 
 
 def _nvcc() -> str:

@@ -3,9 +3,9 @@ port of ``smc_tpu.parallel.multihost``).
 
 Each process of a multi-GPU job runs the same program; the process group
 wires them together. On a single process this module is a no-op, so the
-same entry script runs everywhere. The SMC step itself does not yet run
-across processes (ROADMAP Queue 1 item 12); what uses this now is the
-primary-process gating of artifact IO (``runner.run_with_artifacts``).
+same entry script runs everywhere. ``parallel/mesh.py`` builds the run's
+mesh over the group (one SMC run across the processes), and the
+primary process alone owns artifact IO (``runner.run_with_artifacts``).
 
 Failure semantics (deliberately narrow: a real init failure must NOT
 silently degrade to a single-process run that then proceeds with the

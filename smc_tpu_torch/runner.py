@@ -10,6 +10,11 @@ console metric line), the same tree the JAX package writes.
 On CUDA ``run_smc`` replays captured graphs and hands the callback a copy
 of each step's state, so the manager's host reads happen between replays
 and change no bit of the run.
+
+With a mesh (``run_with_artifacts(mesh=...)``) every process runs its rows
+of the run; each step's state is gathered (a collective every process
+joins) and only the primary process writes the artifacts, the files a
+one-device run writes.
 """
 from __future__ import annotations
 
@@ -118,6 +123,9 @@ class RunManager:
             return
         if self._pred_model is None:
             pred_model = self.model
+            if getattr(pred_model, "lane_mesh", None) is not None:
+                # Only this process plots: no collective may run.
+                pred_model = dataclasses.replace(pred_model, lane_mesh=None)
             # The kernel likelihoods return ll only; predictions for the
             # parity plots come from the plain closed form.
             if getattr(pred_model, "method", "").startswith("pallas"):
@@ -221,12 +229,16 @@ def run_with_artifacts(model, cfg: SMCConfig, key,
 
     In a multi-process run only the primary process (rank 0) owns artifact
     IO: the others run the same compute but create no run dir, write no
-    files, and return rundir=None. ``mesh`` (one run over several GPUs) is
-    not ported and raises."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (the particle axis over several GPUs) is not ported yet "
-            "(ROADMAP Queue 1 item 12: multi-GPU)")
+    files, and return rundir=None.
+
+    ``mesh`` (``parallel.mesh.make_mesh``): one run over the mesh's
+    processes, each holding its rows of the particles, sharded on init and
+    on resume (``load_state(sharding=)``). Each step's state is gathered
+    for the artifacts and checkpoints, which the primary process writes as
+    a one-device run would; the returned state is the whole one, on every
+    process."""
+    from smc_tpu_torch.parallel.mesh import gather_state, particle_sharding
+    psh = None if mesh is None else particle_sharding(mesh)
     primary = is_primary_host()
     rd = (rundir or RunDir(tag=type(model).__name__)) if primary else None
     mgr = None
@@ -241,24 +253,43 @@ def run_with_artifacts(model, cfg: SMCConfig, key,
     t0 = time.perf_counter()
     try:
         if resume_from:
-            state = load_state(resume_from, device=model.prior.device)
+            state = load_state(resume_from, sharding=psh,
+                               device=model.prior.device)
         else:
-            state = init_state(key, model, cfg)
+            state = init_state(key, model, cfg, psharding=psh)
+
+        def whole(s):
+            return s if psh is None else gather_state(s, psh)
+        callback = mgr
+        if psh is not None:
+            def callback(s):                  # every process gathers
+                s = whole(s)
+                if mgr is not None:
+                    mgr(s)
         if mgr is not None:
-            mgr.on_init(state)
+            mgr.on_init(whole(state))
+        elif psh is not None:
+            whole(state)
         if max_restarts > 0:
             ext = ".smcd" if checkpoint_format == "smcd" else ".npz"
-            ckpt = (rd.file("checkpoints", "latest" + ext) if rd is not None
-                    else os.path.join(tempfile.gettempdir(),
-                                      f"smc_latest_{os.getpid()}" + ext))
+            if rd is not None:
+                ckpt = rd.file("checkpoints", "latest" + ext)
+            elif psh is not None:
+                ckpt = None          # run_resilient takes the primary's
+            else:
+                ckpt = os.path.join(tempfile.gettempdir(),
+                                    f"smc_latest_{os.getpid()}" + ext)
             state = run_resilient(
-                model, cfg, key, checkpoint=ckpt, callback=mgr, state=state,
-                max_restarts=max_restarts, verbose=verbose and primary,
-                granularity=granularity, resume=False, stop_file=stop_file)
+                model, cfg, key, checkpoint=ckpt, callback=callback,
+                state=state, max_restarts=max_restarts,
+                verbose=verbose and primary, granularity=granularity,
+                resume=False, stop_file=stop_file, psharding=psh)
         else:
-            state = run_smc(model, cfg, key, callback=mgr, state=state,
+            state = run_smc(model, cfg, key, callback=callback, state=state,
                             verbose=verbose and primary,
-                            granularity=granularity, stop_file=stop_file)
+                            granularity=granularity, stop_file=stop_file,
+                            psharding=psh)
+        state = whole(state)
         if verbose and primary:
             print(f"end_time:{time.perf_counter() - t0}")
         if mgr is not None:

@@ -31,6 +31,14 @@ package splits a key per dataset.
 The JAX package's fused ``while_loop`` program and its sweep-granularity run
 are one loop here, with and without polling: :func:`make_ensemble_run` and
 :func:`run_ensemble_sweeps` give the same state from the same seed.
+
+On a mesh (``make_ensemble_run(..., mesh=...)``, parallel/mesh.py) the
+populations are split over the "data" axis and each population's
+particles over the "particles" axis: a process holds (D/n_data, N/S, d).
+Per-population reductions run on the particle axis's group only; the
+flags the host reads ("any population running", "any population
+sweeps") are all-reduced over the whole mesh, so every process takes the
+same number of steps and sweeps.
 """
 from __future__ import annotations
 
@@ -83,13 +91,20 @@ def take_datasets(states: SMCState, idx) -> SMCState:
 
 
 def init_ensemble(key, prior: Prior, loglik_fn: DataLogLik, data,
-                  n_datasets: int, cfg: SMCConfig) -> SMCState:
+                  n_datasets: int, cfg: SMCConfig, psh=None) -> SMCState:
     """Stacked SMCState with leading dataset axis D: the prior draw of all
     D x N particles and the initial likelihood sweep. ``key`` is an int seed
-    or a ``Draws``; the run's device is the prior's."""
+    or a ``Draws``; the run's device is the prior's. On a mesh (``psh``)
+    ``n_datasets`` and ``data`` are this process's populations, and the
+    state holds its particle rows of them."""
     dev = prior.device
     draws = as_draws(key, dev)
-    particles = prior.sample(draws, (n_datasets, cfg.n_particles), cfg.dtype)
+    n_l = cfg.n_particles
+    view = draws
+    if psh is not None:
+        n_l = cfg.n_particles // psh.particles.size
+        view = psh.view(draws, n_l, n_datasets)
+    particles = prior.sample(view, (n_datasets, n_l), cfg.dtype)
     log_lik, _ = loglik_fn(particles, data)
 
     def per_pop(v, dtype=cfg.dtype):
@@ -112,7 +127,7 @@ def _freeze(done: torch.Tensor, old: SMCState, new: SMCState) -> SMCState:
 
 
 def make_ensemble_sweep_fns(prior: Prior, loglik_fn: DataLogLik,
-                            n_datasets: int, cfg: SMCConfig):
+                            n_datasets: int, cfg: SMCConfig, psh=None):
     """The pieces of one ensemble step, each bounded by at most one
     mutation sweep of the whole ensemble (D x N likelihood rows).
 
@@ -130,6 +145,9 @@ def make_ensemble_sweep_fns(prior: Prior, loglik_fn: DataLogLik,
     - ``finish(states, key, g, carry) -> states``: fold the step in;
       populations already at gamma >= 1 before the step are frozen
       whole-state.
+
+    ``psh``: this process's share of a mesh (module text); ``n_datasets``
+    and ``data`` are then its populations.
     """
     built = []          # [data, (init_fn, sweep_fn)] of the last data seen
 
@@ -139,44 +157,55 @@ def make_ensemble_sweep_fns(prior: Prior, loglik_fn: DataLogLik,
                 return loglik_fn(th, data)
             bound.method = getattr(loglik_fn, "method", None)
             built[:] = [data, make_mutation_sweeper(cfg.mutation, bound,
-                                                    prior, cfg)]
+                                                    prior, cfg, psh)]
         return built[1]
 
     def einit(key, data):
-        return init_ensemble(key, prior, loglik_fn, data, n_datasets, cfg)
+        return init_ensemble(key, prior, loglik_fn, data, n_datasets, cfg,
+                             psh)
 
     def prep(states: SMCState):
-        g = find_gamma(states.log_lik, states.gamma, cfg)
-        parts, lk = _resample(g, states, cfg)
+        g = find_gamma(states.log_lik, states.gamma, cfg, psh)
+        parts, lk = _resample(g, states, cfg, psh)
         return states.key, states.key, g, parts, lk
 
     def mut_init(k_mh, parts, lk, data):
+        if psh is not None:
+            k_mh = psh.view(k_mh, parts.shape[-2], parts.shape[0])
         return sweeper(data)[0](k_mh, parts, lk)
 
     def mut_sweep(c, gamma, data, active):
         return sweeper(data)[1](c, gamma, active)
 
     def finish(states: SMCState, key, g, c) -> SMCState:
-        new = _advance(states.replace(key=key), g, mutation_result(c), cfg)
+        new = _advance(states.replace(key=key), g, mutation_result(c, psh),
+                       cfg, psh)
         return _freeze(states.gamma >= 1.0, states, new)
 
     return einit, prep, mut_init, mut_sweep, finish
 
 
-def _step_pieces(fns, cfg: SMCConfig) -> graphs.Pieces:
+def _step_pieces(fns, cfg: SMCConfig, psh=None) -> graphs.Pieces:
     """:func:`make_ensemble_sweep_fns`'s pieces cut at the seams of
     smc/graphs.py. ``p`` is (gamma search, particles, log_lik, sweep
     limit, frozen): populations at gamma >= 1 before the step are frozen.
     A population sweeps while it is not frozen, its sweeps are not done
-    and it has not stopped early; ``more`` is "any population sweeps"."""
+    and it has not stopped early; ``more`` is "any population sweeps". On
+    a mesh both flags are all-reduced over every process."""
     einit, prep, mut_init, mut_sweep, finish = fns
 
     def active(c, p):
         return ~c.done & (c.j < p[3]) & ~p[4]
 
+    def anywhere(flag):
+        return flag if psh is None else psh.world.any(flag)
+
+    def running(s):
+        return anywhere(_running(s, cfg))
+
     def init(key, data):
         s = einit(key, data)
-        return s, _running(s, cfg)
+        return s, running(s)
 
     def u_prep(s, data):
         _, _, g, parts, lk = prep(s)
@@ -185,22 +214,22 @@ def _step_pieces(fns, cfg: SMCConfig) -> graphs.Pieces:
     def u_mut_init(s, p, data):
         c = mut_init(s.key, p[1], p[2], data)
         c = mut_sweep(c, p[0].gamma, data, active(c, p))
-        return c, torch.any(active(c, p))
+        return c, anywhere(torch.any(active(c, p)))
 
     def u_mut_sweep(s, p, c, data):
         c = mut_sweep(c, p[0].gamma, data, active(c, p))
-        return c, torch.any(active(c, p))
+        return c, anywhere(torch.any(active(c, p)))
 
     def u_finish(s, p, c, data):
         new = finish(s, s.key, p[0], c)
-        return new, _running(new, cfg)
+        return new, running(new)
 
     return graphs.Pieces(init, u_prep, u_mut_init, u_mut_sweep, u_finish)
 
 
 def _run(programs: graphs.Programs, states: Optional[SMCState], key, data,
          cfg: SMCConfig, n_datasets: int, verbose: bool = False,
-         callback=None, stop_file=None) -> SMCState:
+         callback=None, stop_file=None, psh=None) -> SMCState:
     """The ensemble loop behind both entry points: from ``states``, or
     from the prior draw with ``key``; the returned state is a copy. The
     stop file is polled before every step and every sweep after a step's
@@ -212,13 +241,15 @@ def _run(programs: graphs.Programs, states: Optional[SMCState], key, data,
         s, running = pcs.init(as_draws(key, dev), data)
     else:
         running = _running(s, cfg)
+        if psh is not None:
+            running = psh.world.any(running)
     while graphs.read(running):
-        if _stop_requested(stop_file):
+        if _stop_requested(stop_file, psh, dev):
             print(f"run_ensemble_sweeps: stop file {stop_file} present — "
                   f"returning at max step {int(s.step.max())}", flush=True)
             break
         try:
-            s, running = run_step(pcs, s, data, stop_file)
+            s, running = run_step(pcs, s, data, stop_file, psh)
         except StopRequested:
             print(f"run_ensemble_sweeps: stop file {stop_file} present "
                   f"mid-step — returning last completed step "
@@ -262,16 +293,33 @@ def make_ensemble_run(prior: Prior, loglik_fn: DataLogLik, n_datasets: int,
     polling. Build once, call with fresh keys and data: on CUDA the prior
     draw with the initial sweep and each piece of a step are graphs,
     captured at the first call per shape. The returned state is a copy.
-    ``mesh`` other than None is not ported."""
+
+    ``mesh``: a 2-D mesh from ``parallel.mesh.make_mesh(n, n_data)``. The
+    populations are split over its "data" axis and each population's
+    particles over its "particles" axis; every process calls ``fn`` with
+    the same key and the whole ``data`` (D, ...), and gets its block
+    (D / n_data, N / S, d) of the state (``parallel.mesh.gather_state``
+    for the whole). On a gloo group the pieces run eagerly."""
+    psh = None
     if mesh is not None:
-        raise NotImplementedError(
-            "mesh is not ported yet (ROADMAP Queue 1 item 12: multi-GPU); "
-            "the ensemble runs on one device")
+        from smc_tpu_torch.parallel.mesh import particle_sharding
+        psh = particle_sharding(mesh)
+        if n_datasets % psh.data.size or cfg.n_particles % \
+                psh.particles.size:
+            raise ValueError(
+                f"{n_datasets} datasets x {cfg.n_particles} particles do "
+                f"not divide over the mesh ({psh.data.size} data x "
+                f"{psh.particles.size} particle ranks)")
+    d_local = n_datasets if psh is None else n_datasets // psh.data.size
     programs = graphs.Programs(_step_pieces(
-        make_ensemble_sweep_fns(prior, loglik_fn, n_datasets, cfg), cfg))
+        make_ensemble_sweep_fns(prior, loglik_fn, d_local, cfg, psh), cfg,
+        psh), comm=psh)
 
     def run(key, data) -> SMCState:
-        return _run(programs, None, key, data, cfg, n_datasets)
+        if psh is not None:
+            rows = psh.datasets(n_datasets)
+            data = graphs.tree_map(lambda t: t[rows], data)
+        return _run(programs, None, key, data, cfg, d_local, psh=psh)
 
     return run
 

@@ -54,6 +54,12 @@ step), all count their captures and replays in :data:`stats`.
 
 On the CPU there are no graphs: the same pieces run eagerly (the tests'
 path).
+
+A sharded run's pieces (parallel/mesh.py) hold collectives. On NCCL they
+are captured with the rest: before the first capture one eager collective
+per group starts its communicator, whose lazy start a capture cannot
+record. A gloo group cannot be captured: :class:`Programs` then gives the
+eager pieces on CUDA too.
 """
 from __future__ import annotations
 
@@ -220,9 +226,10 @@ class StepGraphs:
     shapes. Captured at the first :meth:`bind`; the object then offers the
     pieces' own signatures and replays one graph per call."""
 
-    def __init__(self, pieces: Pieces, device: torch.device):
+    def __init__(self, pieces: Pieces, device: torch.device, comm=None):
         self.pieces = pieces
         self.device = device
+        self.comm = comm
         self.draws = TorchDraws(0, device)        # the private generator
         self.pool = torch.cuda.graph_pool_handle()
         self.graphs = {}                          # name -> (graph, launches)
@@ -239,6 +246,8 @@ class StepGraphs:
         earlier graphs' replays, so they may share the pool."""
         t0 = time.perf_counter()
         _build.load()                        # build before any capture
+        if self.comm is not None:
+            self.comm.warm_up(self.device)   # start the communicators
         self.D = clone(data)
         warm_up(lambda: self._warm_up(state), self.device)
         self._record_pieces()
@@ -401,16 +410,19 @@ class Programs:
     """The capture cache of one ``make_*`` function: a :class:`StepGraphs`
     per shape, as a jitted function keeps one executable per shape."""
 
-    def __init__(self, pieces: Pieces):
+    def __init__(self, pieces: Pieces, comm=None):
         self.pieces = pieces
+        self.comm = comm                     # a ParticleSharding, or None
         self.by_shape = {}
 
     def on(self, device: torch.device, state, data):
         """The pieces to run with, and the state and data to run them on:
         on CUDA the graphs of this shape (captured now if new) with the
         inputs copied into their buffers; on the CPU the eager pieces and
-        the inputs as they are."""
-        if device.type != "cuda":
+        the inputs as they are. A gloo-sharded run gets the eager pieces
+        on CUDA too."""
+        if device.type != "cuda" or (self.comm is not None
+                                     and not self.comm.capturable):
             return self.pieces, state, data
         shape = tuple((tuple(t.shape), t.dtype)
                       for t in tensors(state) + tensors(data))
@@ -419,6 +431,7 @@ class Programs:
         if prog is None:
             kind = (BlockGraphs if isinstance(self.pieces, BlockPieces)
                     else StepGraphs)
-            prog = self.by_shape[shape] = kind(self.pieces, device)
+            prog = self.by_shape[shape] = kind(self.pieces, device,
+                                               self.comm)
         state, data = prog.bind(state, data)
         return prog, state, data

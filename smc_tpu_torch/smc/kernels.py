@@ -16,6 +16,12 @@ step ratio and stop latch per population, (D,)). Nothing loops over D: the
 reductions run along the particle axis, the two kernels take the axis in
 their grids, and the bundle gather is one flat ``index_select``. The JAX
 package gets the same from ``jax.vmap`` of the single-population functions.
+
+A run sharded over several processes (parallel/mesh.py) passes its
+``psharding`` (``psh``): then each function holds this rank's rows, every
+reduction over the particle axis is completed by a collective of
+``psh.particles``, and N is the global particle count. With ``psh`` None
+nothing changes.
 """
 from __future__ import annotations
 
@@ -43,6 +49,15 @@ def _over(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return x.reshape(x.shape + (1,) * (like.dim() - x.dim()))
 
 
+def _n_global(n_local: int, psh) -> int:
+    return n_local if psh is None else psh.n_global(n_local)
+
+
+def _psum(x: torch.Tensor, psh) -> torch.Tensor:
+    """``x`` summed over the particle axis's ranks (itself unsharded)."""
+    return x if psh is None else psh.particles.sum(x)
+
+
 # --------------------------------------------------------------------------
 # Adaptive tempering (gamma search)
 # --------------------------------------------------------------------------
@@ -59,7 +74,7 @@ class GammaResult(NamedTuple):
 
 
 def find_gamma(log_lik: torch.Tensor, gamma_old: torch.Tensor,
-               cfg: SMCConfig) -> GammaResult:
+               cfg: SMCConfig, psh=None) -> GammaResult:
     """ESS-controlled tempering-exponent search for log_lik (N,) with
     gamma_old (), or for an ensemble's (D, N) with (D,).
 
@@ -68,9 +83,14 @@ def find_gamma(log_lik: torch.Tensor, gamma_old: torch.Tensor,
     d_gamma_max, 1), are all known up front; their weight sums come from one
     ladder pass (ops/ladder_cuda.py) and the first candidate whose
     normalized ESS exceeds ``ess_limit`` wins (the last one if none does).
+    Sharded (``psh``): the max, the ladder's local sums and the weights'
+    normalizer are completed across the ranks, so every rank picks the
+    same gamma.
     """
-    n = log_lik.shape[-1]
+    n = _n_global(log_lik.shape[-1], psh)
     max_ll = torch.amax(log_lik, dim=-1)
+    if psh is not None:
+        max_ll = psh.particles.max(max_ll)
     d_ll = log_lik - max_ll[..., None]          # <= 0; exp never overflows
     gamma0 = torch.clamp_max(gamma_old + cfg.d_gamma_max, 1.0)
     ks = torch.arange(cfg.gamma_reduction_iters + 1, device=log_lik.device)
@@ -80,6 +100,8 @@ def find_gamma(log_lik: torch.Tensor, gamma_old: torch.Tensor,
 
     s1, s2 = ladder_stats(d_ll.contiguous(),
                           (gammas - gamma_old[..., None]).contiguous())
+    if psh is not None:
+        s1, s2 = psh.particles.sum(torch.stack([s1, s2])).unbind(0)
     ess_all = (s1 * s1 / (s2 * n)).to(d_ll.dtype)
     ok = ess_all > cfg.ess_limit
     # argmax of the int cast picks the FIRST passing candidate.
@@ -89,7 +111,7 @@ def find_gamma(log_lik: torch.Tensor, gamma_old: torch.Tensor,
     dg = gamma - gamma_old
     weights = torch.exp(d_ll * dg[..., None])
     log_z = dg * max_ll + torch.log(_take(s1, idx) / n)
-    weights = weights / torch.sum(weights, dim=-1, keepdim=True)
+    weights = weights / _psum(torch.sum(weights, dim=-1, keepdim=True), psh)
     return GammaResult(gamma, weights, _take(ess_all, idx),
                        idx.to(torch.int32), max_ll, log_z.to(d_ll.dtype))
 
@@ -107,7 +129,36 @@ def find_gamma(log_lik: torch.Tensor, gamma_old: torch.Tensor,
 _QBITS = 24
 
 
-def _rs_counts_offsets(v0: torch.Tensor, weights: torch.Tensor):
+def _shard_scan(local_totals: torch.Tensor, psh):
+    """``(offset, total, gathered)`` of per-rank totals ``local_totals``
+    (..., k) from one all-gather: this rank's exclusive offset, the global
+    total, and every rank's totals (S, ..., k). The offset is added up
+    rank by rank in rank order, so the offset rank r + 1 starts at is, bit
+    for bit, the end rank r computes for itself."""
+    g = psh.particles.gather(local_totals)        # (S, ..., k)
+    off = torch.zeros_like(local_totals)
+    for r in range(psh.particles.rank):
+        off = off + g[r]
+    total = off
+    for r in range(psh.particles.rank, psh.particles.size):
+        total = total + g[r]
+    return off, total, g
+
+
+def _max_owner(weights: torch.Tensor, psh, gathered_bits=None):
+    """Where the global first max weight lies: ``(here, before)``, bools
+    with the population shape: on this rank, or on an earlier one. The
+    owner is the lowest rank holding the global max (the fp32 bits of
+    non-negative weights order as their int32 values)."""
+    if gathered_bits is None:
+        bits = torch.amax(weights, dim=-1).view(torch.int32).to(torch.int64)
+        gathered_bits = psh.particles.gather(bits)
+    owner = torch.argmax(gathered_bits, dim=0)     # first max rank
+    rank = psh.particles.rank
+    return owner == rank, owner < rank
+
+
+def _rs_counts_offsets(v0: torch.Tensor, weights: torch.Tensor, psh=None):
     """Offspring counts of residual-systematic resampling and their
     exclusive prefix sum (the output slot offsets), both int32, (N,) or for
     an ensemble (D, N).
@@ -118,8 +169,17 @@ def _rs_counts_offsets(v0: torch.Tensor, weights: torch.Tensor):
     from the two prefix sums without a third. The quantization remainder
     (the total off N by one or two) goes to the max-weight particle, never
     driving a count negative.
+
+    Sharded (``psh``): ``weights`` are this rank's rows, N is global, and
+    the offsets are global slots. Each int64 prefix sum gets this rank's
+    exclusive shard offset (one all-gather of the shard totals and max
+    weights), so the counts are the one-device counts bit for bit; the
+    repair goes to the global first-max particle, on the lowest rank that
+    holds the global max, and the offsets after it shift by what it
+    applied (one all-reduce).
     """
-    n = weights.shape[-1]
+    n_l = weights.shape[-1]
+    n = _n_global(n_l, psh)
     scaled = weights * n
     det = torch.floor(scaled)
     resid = scaled - det                          # [0, 1), exact fp32
@@ -127,28 +187,45 @@ def _rs_counts_offsets(v0: torch.Tensor, weights: torch.Tensor):
     q = torch.floor(resid * (1 << _QBITS)).to(torch.int64)
     det_i = det.to(torch.int64)
     det_csum = torch.cumsum(det_i, -1)
+    q_csum = torch.cumsum(q, -1)
     bias = ((1 << _QBITS) - v0q)[..., None]       # in [1, 2^QBITS]
-    grid_below = (torch.cumsum(q, -1) + bias) >> _QBITS
     grid_start = bias >> _QBITS                   # grid below cumsum 0
-    prev = torch.cat([grid_start, grid_below[..., :-1]], dim=-1)
-    counts = det_i + grid_below - prev
-    total = det_csum[..., -1:] + grid_below[..., -1:] - grid_start
     fix = torch.argmax(weights, dim=-1, keepdim=True)          # first max
-    applied = torch.maximum(n - total, -counts.gather(-1, fix))
-    pos = torch.arange(n, device=weights.device)
-    counts = counts + torch.where(pos == fix, applied, 0)
+    pos = torch.arange(n_l, device=weights.device)
+    first, det_tot, q_tot = grid_start, det_csum[..., -1:], q_csum[..., -1:]
+    at, after = pos == fix, pos > fix
+    if psh is not None:
+        bits = torch.amax(weights, dim=-1).view(torch.int32).to(torch.int64)
+        off, tot, g = _shard_scan(torch.stack(
+            [det_csum[..., -1], q_csum[..., -1], bits], dim=-1), psh)
+        here, before = (f[..., None] for f in
+                        _max_owner(weights, psh, g[..., 2]))
+        det_csum = det_csum + off[..., 0:1]
+        q_csum = q_csum + off[..., 1:2]
+        first = (off[..., 1:2] + bias) >> _QBITS  # grid below this start
+        det_tot, q_tot = tot[..., 0:1], tot[..., 1:2]
+        at, after = here & at, before | (here & after)
+    grid_below = (q_csum + bias) >> _QBITS
+    prev = torch.cat([first, grid_below[..., :-1]], dim=-1)
+    counts = det_i + grid_below - prev
+    total = det_tot + ((q_tot + bias) >> _QBITS) - grid_start
+    at_fix = counts.gather(-1, fix)
+    if psh is not None:           # from the rank that holds the global max
+        at_fix = psh.particles.sum(torch.where(here, at_fix, 0))
+    applied = torch.maximum(n - total, -at_fix)
+    counts = counts + torch.where(at, applied, 0)
     offsets = (det_csum - det_i) + (prev - grid_start)
-    offsets = offsets + torch.where(pos > fix, applied, 0)
+    offsets = offsets + torch.where(after, applied, 0)
     return counts.to(torch.int32), offsets.to(torch.int32)
 
 
-def residual_systematic_counts(v0: torch.Tensor,
-                               weights: torch.Tensor) -> torch.Tensor:
+def residual_systematic_counts(v0: torch.Tensor, weights: torch.Tensor,
+                               psh=None) -> torch.Tensor:
     """Per-particle offspring counts (N,) int32 (per population) summing
     exactly to N:
     floor(N w_i) deterministic copies plus the residual mass resampled
     systematically from the single offset ``v0``."""
-    return _rs_counts_offsets(v0, weights)[0]
+    return _rs_counts_offsets(v0, weights, psh)[0]
 
 
 def residual_systematic_ancestors(v0: torch.Tensor,
@@ -164,16 +241,27 @@ def _gather_bundle(anc: torch.Tensor, particles: torch.Tensor,
     one row gather of the (N, d + 1) bundle, bitwise equal to indexing each
     array. An ensemble's population p indexes the flattened (D N, d + 1)
     bundle at ``anc + p N``."""
-    anc = anc.long()
-    bundle = torch.cat([particles, log_lik[..., None]], dim=-1)
-    if anc.dim() == 2:
-        n_pop, n = anc.shape
-        base = torch.arange(n_pop, device=anc.device)[:, None] * n
-        out = bundle.reshape(n_pop * n, -1).index_select(
-            0, (anc + base).reshape(-1)).reshape(bundle.shape)
-    else:
-        out = bundle.index_select(0, anc)
+    return split_bundle(take_rows(
+        anc, torch.cat([particles, log_lik[..., None]], dim=-1)))
+
+
+def split_bundle(out: torch.Tensor):
+    """(particles, log_lik) of a (..., d + 1) bundle."""
     return out[..., :-1], out[..., -1]
+
+
+def take_rows(anc: torch.Tensor, bundle: torch.Tensor) -> torch.Tensor:
+    """Rows ``anc`` (M,) or (D, M) of ``bundle`` (N, k) or (D, N, k): one
+    ``index_select`` (population p's rows at ``anc + p N`` of the
+    flattened bundle)."""
+    anc = anc.long()
+    if anc.dim() == 2:
+        n_pop, n = bundle.shape[:2]
+        base = torch.arange(n_pop, device=anc.device)[:, None] * n
+        return bundle.reshape(n_pop * n, -1).index_select(
+            0, (anc + base).reshape(-1)).reshape(anc.shape
+                                                 + bundle.shape[-1:])
+    return bundle.index_select(0, anc)
 
 
 def residual_systematic_apply(v0: torch.Tensor, weights: torch.Tensor,
@@ -208,7 +296,7 @@ def counts_to_ancestors(counts: torch.Tensor) -> torch.Tensor:
 # from the host, so each runs inside a captured graph.
 
 
-def _prefix_sums(weights: torch.Tensor) -> torch.Tensor:
+def _prefix_sums(weights: torch.Tensor, psh=None):
     """The weights' inclusive prefix sums, added in float64 and rounded once
     to the weights' type. An fp32 scan need not be monotone (the reference's
     XLA cumsum is not, nor PyTorch's on CUDA), and a dip makes a systematic
@@ -216,62 +304,97 @@ def _prefix_sums(weights: torch.Tensor) -> torch.Tensor:
     [0, N]. Rounding a float64 sum of non-negative weights is monotone on
     every device. Where the fp32 sums are exact this gives their bits; else
     a count can differ from the reference's where a grid point or a uniform
-    falls within rounding of a prefix sum."""
-    return torch.cumsum(weights.to(torch.float64), -1).to(weights.dtype)
+    falls within rounding of a prefix sum.
+
+    Returns ``(ends, prev)``: sharded, ``ends`` is this rank's part of the
+    global sums (the local float64 sums plus the exclusive float64 shard
+    offset) and ``prev`` the previous rank's last sum; ``prev`` is None
+    on the first rank and unsharded."""
+    local = torch.cumsum(weights.to(torch.float64), -1)
+    if psh is None:
+        return local.to(weights.dtype), None
+    off, _, _ = _shard_scan(local[..., -1:], psh)
+    prev = off.to(weights.dtype) if psh.particles.rank else None
+    return (local + off).to(weights.dtype), prev
 
 
-def _count_slots(anc: torch.Tensor, n: int) -> torch.Tensor:
-    """Counts (..., n) int32 of the slot indices ``anc`` (..., n): a
-    scatter-add, which needs no host read (``bincount`` would)."""
-    counts = torch.zeros(anc.shape, dtype=torch.int32, device=anc.device)
-    return counts.scatter_add_(-1, anc, torch.ones_like(counts))
+def _count_slots(anc: torch.Tensor, n: int,
+                 src: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Counts (..., n) int32 of the slot indices ``anc`` (..., M), each
+    slot adding its ``src`` (default 1): a scatter-add, which needs no host
+    read (``bincount`` would)."""
+    counts = torch.zeros(anc.shape[:-1] + (n,), dtype=torch.int32,
+                         device=anc.device)
+    if src is None:
+        src = torch.ones(anc.shape, dtype=torch.int32, device=anc.device)
+    return counts.scatter_add_(-1, anc, src)
 
 
-def systematic_counts(v0: torch.Tensor, weights: torch.Tensor
+def _repair_at_max(counts: torch.Tensor, weights: torch.Tensor, n: int,
+                   psh) -> torch.Tensor:
+    """The counts' shortfall from ``n`` added at the (first) max-weight
+    particle, globally when sharded."""
+    fix = torch.argmax(weights, dim=-1, keepdim=True)
+    diff = n - _psum(torch.sum(counts, -1, keepdim=True, dtype=torch.int32),
+                     psh)
+    if psh is not None:
+        diff = torch.where(_max_owner(weights, psh)[0][..., None], diff, 0)
+    return counts.scatter_add(-1, fix, diff.to(torch.int32))
+
+
+def systematic_counts(v0: torch.Tensor, weights: torch.Tensor, psh=None
                       ) -> torch.Tensor:
     """Plain systematic resampling: counts_j = #{k : v0 + k in (N C_{j-1},
     N C_j]}, from one shared offset ``v0`` per population (0-d or (D,)).
     The total's shortfall goes to the (first) max-weight particle."""
-    n = weights.shape[-1]
-    csum = _prefix_sums(weights) * n
+    n = _n_global(weights.shape[-1], psh)
+    csum, prev = _prefix_sums(weights, psh)
+    csum = csum * n
     below = torch.clamp_min(torch.floor(csum - v0[..., None]) + 1.0, 0.0)
-    counts = torch.diff(below, dim=-1,
-                        prepend=torch.zeros_like(below[..., :1])
-                        ).to(torch.int32)
-    diff = n - torch.sum(counts, -1, keepdim=True, dtype=torch.int32)
-    fix = torch.argmax(weights, dim=-1, keepdim=True)
-    counts = counts.scatter_add(-1, fix, diff)
+    head = (torch.zeros_like(below[..., :1]) if prev is None else
+            torch.clamp_min(torch.floor(prev * n - v0[..., None]) + 1.0,
+                            0.0))
+    counts = torch.diff(below, dim=-1, prepend=head).to(torch.int32)
+    counts = _repair_at_max(counts, weights, n, psh)
     return torch.clamp_min(counts, 0)
 
 
-def _inverse_cdf_counts(u: torch.Tensor, weights: torch.Tensor
+def _inverse_cdf_counts(u: torch.Tensor, weights: torch.Tensor, psh=None
                         ) -> torch.Tensor:
     """Counts of the particles whose prefix-sum interval (C_{j-1}, C_j]
     holds each point of ``u`` (..., N): the first j with C_j >= u
-    (``searchsorted``, left), capped at N - 1."""
-    n = weights.shape[-1]
-    ends = _prefix_sums(weights).contiguous()
-    anc = torch.clamp_max(torch.searchsorted(ends, u.contiguous()), n - 1)
-    return _count_slots(anc, n)
+    (``searchsorted``, left), capped at N - 1. Sharded, ``u`` holds every
+    one of the N global points and each rank counts those that fall in
+    its rows' intervals."""
+    n_l = weights.shape[-1]
+    ends, prev = _prefix_sums(weights, psh)
+    j = torch.searchsorted(ends.contiguous(), u.contiguous())
+    mine = None                                  # every point is here
+    if psh is not None and psh.particles.rank < psh.particles.size - 1:
+        mine = j < n_l                           # the last rank takes the cap
+    if prev is not None:
+        mine = u > prev if mine is None else mine & (u > prev)
+    return _count_slots(torch.clamp_max(j, n_l - 1), n_l,
+                        None if mine is None else mine.to(torch.int32))
 
 
-def stratified_counts(u: torch.Tensor, weights: torch.Tensor
+def stratified_counts(u: torch.Tensor, weights: torch.Tensor, psh=None
                       ) -> torch.Tensor:
     """Stratified resampling: one uniform ``u`` (..., N) per output slot,
     placed in its own 1/N stratum, (k + u_k) / N."""
-    n = weights.shape[-1]
+    n = u.shape[-1]
     k = torch.arange(n, dtype=u.dtype, device=u.device)
     # Divide by a device tensor: PyTorch's CUDA division by a host scalar
     # multiplies by its reciprocal, which is not IEEE division.
     points = (k + u) / torch.full((), n, dtype=u.dtype, device=u.device)
-    return _inverse_cdf_counts(points, weights)
+    return _inverse_cdf_counts(points, weights, psh)
 
 
-def multinomial_counts(u: torch.Tensor, weights: torch.Tensor
+def multinomial_counts(u: torch.Tensor, weights: torch.Tensor, psh=None
                        ) -> torch.Tensor:
     """Multinomial resampling (iid ancestors) from one uniform ``u``
     (..., N) per output slot."""
-    return _inverse_cdf_counts(u, weights)
+    return _inverse_cdf_counts(u, weights, psh)
 
 
 _RESAMPLERS = {
@@ -283,15 +406,16 @@ _RESAMPLERS = {
 
 
 def resample_counts(u: torch.Tensor, weights: torch.Tensor,
-                    scheme: str = "residual_systematic") -> torch.Tensor:
+                    scheme: str = "residual_systematic", psh=None
+                    ) -> torch.Tensor:
     """Offspring counts of ``scheme`` from its uniforms ``u``
-    (:func:`resample_uniforms`)."""
+    (:func:`resample_uniforms`); sharded, this rank's rows' counts."""
     try:
         fn = _RESAMPLERS[scheme]
     except KeyError:
         raise ValueError(f"unknown resampling scheme {scheme!r}; "
                          f"one of {sorted(_RESAMPLERS)}") from None
-    return fn(u, weights)
+    return fn(u, weights, psh)
 
 
 def resample_uniforms(draws, scheme: str, pop_shape: tuple,
@@ -336,14 +460,20 @@ class MutationResult(NamedTuple):
 
 
 def _weighted_cov(x: torch.Tensor, cov_weight: torch.Tensor,
-                  eps: float = 1e-10) -> torch.Tensor:
+                  eps: float = 1e-10, psh=None) -> torch.Tensor:
     """Biased empirical covariance (np.cov(bias=True)) of x (N, d) times the
     elementwise cov_weight, plus a relative jitter for Cholesky stability;
-    (D, d, d) for an ensemble's (D, N, d), by one batched matmul."""
-    n = x.shape[-2]
+    (D, d, d) for an ensemble's (D, N, d), by one batched matmul.
+    Sharded: the global mean (the local means weighted by their share of
+    N, summed across the ranks), then the local GEMM summed across the
+    ranks; at one rank the unsharded bits."""
+    n_l = x.shape[-2]
+    n = _n_global(n_l, psh)
     mu = torch.mean(x, dim=-2, keepdim=True)
+    if psh is not None:
+        mu = psh.particles.sum(mu * (n_l / n))
     xc = x - mu
-    cov = (xc.transpose(-1, -2) @ xc) / n
+    cov = _psum(xc.transpose(-1, -2) @ xc, psh) / n
     cov = cov * cov_weight
     d = cov.shape[-1]
     trace = torch.sum(torch.diagonal(cov, dim1=-2, dim2=-1), dim=-1)
@@ -435,7 +565,8 @@ def _accept_into(accept, prop, lk2, lp2, g2, parts, lk1, lp1, g1):
     return parts, lk1, lp1, g1, accept
 
 
-def make_mutation_parts(kind: str, loglik_fn, prior: Prior, cfg: SMCConfig):
+def make_mutation_parts(kind: str, loglik_fn, prior: Prior, cfg: SMCConfig,
+                        psh=None):
     """Split one adaptive sweep into ``(init_fn, draw_fn, core_fn, admin_fn,
     grad_fn)`` as the JAX package does, for ``kind`` "rwm", "mala" or
     "hmc" (``grad_fn`` is None for "rwm").
@@ -455,7 +586,9 @@ def make_mutation_parts(kind: str, loglik_fn, prior: Prior, cfg: SMCConfig):
     - ``grad_fn(particles) -> (N, d)`` likelihood gradients.
 
     A sweep of "mala" takes one forward and backward pass, of "hmc"
-    ``cfg.hmc_leapfrog`` (``cfg.evals_per_sweep``).
+    ``cfg.hmc_leapfrog`` (``cfg.evals_per_sweep``). Sharded (``psh``), the
+    covariance and the accepted count are completed across the ranks; the
+    core needs no collective.
     """
     if kind not in ("rwm", "mala", "hmc"):
         raise ValueError(f"unknown mutation kind {kind!r}")
@@ -482,11 +615,11 @@ def make_mutation_parts(kind: str, loglik_fn, prior: Prior, cfg: SMCConfig):
             done=per_pop(False, torch.bool))
 
     def admin_fn(c, key, parts, lk1, lp1, g1, accept, gamma):
-        n = parts.shape[-2]
+        n = _n_global(parts.shape[-2], psh)
         r_th = torch.where(gamma >= 1.0, cfg.accept_threshold_final,
                            cfg.accept_threshold)
         r_ac = c.r_ac | accept
-        acc_sum = torch.sum(r_ac, dim=-1)
+        acc_sum = _psum(torch.sum(r_ac, dim=-1), psh)
         done = acc_sum > r_th * n
         halve = ~done & (acc_sum < cfg.accept_threshold_min * n)
         ratio = torch.where(halve, c.mh_ratio * cfg.mh_ratio_decay,
@@ -499,7 +632,7 @@ def make_mutation_parts(kind: str, loglik_fn, prior: Prior, cfg: SMCConfig):
         d = shape[-1]
         cov_weight = cfg.cov_weight(d, c.particles.device).to(
             c.particles.dtype)
-        cov = _weighted_cov(c.particles, cov_weight)
+        cov = _weighted_cov(c.particles, cov_weight, psh=psh)
         chol = _cholesky_or_nan(cov)
         z = c.key.normal(shape, c.particles.dtype)
         log_u = torch.log(c.key.uniform(shape[:-1], c.particles.dtype))
@@ -586,7 +719,7 @@ def make_mutation_parts(kind: str, loglik_fn, prior: Prior, cfg: SMCConfig):
 
 
 def make_mutation_sweeper(kind: str, loglik_fn, prior: Prior,
-                          cfg: SMCConfig):
+                          cfg: SMCConfig, psh=None):
     """``(init_fn, sweep_fn)``: ``sweep_fn(carry, gamma) -> carry`` runs ONE
     sweep (draws, proposal, ``cfg.evals_per_sweep`` likelihood
     evaluations, accept, controller update), composed from
@@ -597,7 +730,7 @@ def make_mutation_sweeper(kind: str, loglik_fn, prior: Prior,
     with ``active[p]`` False keep their old carry (their gradients
     too)."""
     init_fn, draw_fn, core_fn, admin_fn, _ = make_mutation_parts(
-        kind, loglik_fn, prior, cfg)
+        kind, loglik_fn, prior, cfg, psh)
 
     def sweep_fn(c, gamma, active=None):
         key, aux_g, aux_r = draw_fn(c)
@@ -622,7 +755,7 @@ def sweep_limit(gamma: torch.Tensor, cfg: SMCConfig) -> torch.Tensor:
 
 
 def make_sweep_loop_pieces(kind: str, loglik_fn, prior: Prior,
-                           cfg: SMCConfig):
+                           cfg: SMCConfig, psh=None):
     """``(mut_init, mut_sweep)``: one population's adaptive loop cut where
     the host reads.
 
@@ -632,7 +765,8 @@ def make_sweep_loop_pieces(kind: str, loglik_fn, prior: Prior,
 
     ``more`` is the device flag "another sweep is due": fewer than
     ``n_mh`` sweeps so far and no early stop."""
-    init_fn, sweep_fn = make_mutation_sweeper(kind, loglik_fn, prior, cfg)
+    init_fn, sweep_fn = make_mutation_sweeper(kind, loglik_fn, prior, cfg,
+                                              psh)
 
     def mut_sweep(c, gamma, n_mh):
         c = sweep_fn(c, gamma)
@@ -656,11 +790,11 @@ def sweep_until_done(c, more, mut_sweep, poll=None):
     return c
 
 
-def mutation_result(c: MutationCarry) -> MutationResult:
+def mutation_result(c: MutationCarry, psh=None) -> MutationResult:
     """The loop's result from its last carry (per population for an
-    ensemble's)."""
+    ensemble's); sharded, the accepted count is the global one."""
     return MutationResult(c.particles, c.log_lik, c.j,
-                          torch.sum(c.r_ac, dim=-1), c.mh_ratio)
+                          _psum(torch.sum(c.r_ac, dim=-1), psh), c.mh_ratio)
 
 
 def _run_sweeps(kind: str, key, particles, log_lik, gamma, loglik_fn,

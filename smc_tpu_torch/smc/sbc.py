@@ -52,6 +52,10 @@ def sbc_ranks(key, prior: Prior, simulate_fn: SimulateFn, loglik_fn,
     ``verbose``, one line per ensemble step). Both give the same ranks from
     the same seed. On CUDA both replay captured CUDA graphs of the
     ensemble step, captured anew for each call.
+
+    ``mesh``: the fused ensemble runs over its processes
+    (``make_ensemble_run``); every process calls ``sbc_ranks`` with the
+    same key and gets the whole result.
     """
     if n_rank_draws >= cfg.n_particles:
         raise ValueError("n_rank_draws must be < n_particles (thinning)")
@@ -67,6 +71,9 @@ def sbc_ranks(key, prior: Prior, simulate_fn: SimulateFn, loglik_fn,
     else:
         states = make_ensemble_run(prior, loglik_fn, n_replicates, cfg,
                                    mesh=mesh)(draws, data)
+        if mesh is not None:
+            from smc_tpu_torch.parallel.mesh import gather_state
+            states = gather_state(states, mesh)
     short = int(torch.sum(states.gamma < 1.0))
     if short:
         raise RuntimeError(

@@ -54,12 +54,13 @@ def checkpoint_exists(path: str) -> bool:
     return os.path.exists(p) or os.path.exists(p + ".npz")
 
 
-def run_resilient(model, cfg, key, *, checkpoint: str,
+def run_resilient(model, cfg, key, *, checkpoint: Optional[str],
                   granularity: str = "step",
                   callback: Optional[Callable] = None,
                   max_restarts: int = 5, retry_delay_s: float = 30.0,
                   verbose: bool = True, state=None,
-                  resume: bool = True, stop_file: Optional[str] = None):
+                  resume: bool = True, stop_file: Optional[str] = None,
+                  psharding=None):
     """``run_smc`` with per-step checkpointing and reload-on-failure.
 
     Every completed SMC step is checkpointed to ``checkpoint`` (format by
@@ -79,19 +80,56 @@ def run_resilient(model, cfg, key, *, checkpoint: str,
     every retry then fails the same way, the no-progress budget runs out
     and the error is raised. That is the right outcome here;
     :func:`supervise`, with a fresh process, is the path for that failure.
+
+    ``psharding``: one run over a mesh's processes (``state`` their rows).
+    Every process uses the primary process's ``checkpoint`` (the others
+    may pass None) and takes the primary's word on whether it exists, so
+    all resume from the same step. Each checkpoint is the gathered state,
+    written by the primary process while the others wait at a barrier; a
+    reload reads each process's rows. A failure raised on one process
+    alone leaves its peers waiting in a collective: the retry covers
+    failures every process sees (a reload, a stop), and :func:`supervise`
+    the rest.
     """
     from smc_tpu_torch.io.checkpoint import load_state
     from smc_tpu_torch.smc import driver
-    save = _save_for(checkpoint)
     device = model.prior.device
+    psh = psharding
+
+    def from_primary(value):
+        if psh is None:
+            return value
+        import torch.distributed as dist
+        box = [value]
+        dist.broadcast_object_list(box, src=0)
+        return box[0]
+
+    checkpoint = from_primary(checkpoint)
+    write = _save_for(checkpoint)
+
+    def exists():
+        return from_primary(checkpoint_exists(checkpoint))
+
+    def save(path, st):
+        if psh is None:
+            return write(path, st)
+        import torch.distributed as dist
+        from smc_tpu_torch.parallel.mesh import gather_state
+        st = gather_state(st, psh)
+        if psh.world.rank == 0:
+            write(path, st)
+        dist.barrier()
 
     def cb(st):
         save(checkpoint, st)
         if callback is not None:
             callback(st)
 
-    if state is None and resume and checkpoint_exists(checkpoint):
-        state = load_state(checkpoint, device=device)
+    def load(path):
+        return load_state(path, sharding=psh, device=device)
+
+    if state is None and resume and exists():
+        state = load(checkpoint)
         _log(f"run_resilient: resuming from step {int(state.step)} "
              f"gamma={float(state.gamma):.6f}")
     budget = max_restarts
@@ -101,18 +139,18 @@ def run_resilient(model, cfg, key, *, checkpoint: str,
             if state is None:
                 # Checkpoint right after the initial likelihood sweep (at
                 # huge N it is minutes of device time worth not repeating).
-                state = driver.init_state(key, model, cfg)
+                state = driver.init_state(key, model, cfg, psharding=psh)
                 save(checkpoint, state)
             return driver.run_smc(model, cfg, key, callback=cb, state=state,
                                   verbose=verbose, granularity=granularity,
-                                  stop_file=stop_file)
+                                  stop_file=stop_file, psharding=psh)
         except (KeyboardInterrupt, SystemExit):
             raise
         except Exception as e:  # noqa: BLE001 — deliberate catch-all:
             # anything unrecoverable exhausts the no-progress budget and
             # is re-raised.
-            if checkpoint_exists(checkpoint):
-                state = load_state(checkpoint, device=device)
+            if exists():
+                state = load(checkpoint)
                 step = int(state.step)
             else:
                 state, step = None, -1

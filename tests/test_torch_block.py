@@ -87,8 +87,9 @@ def test_block_bounds_every_execution(kind, monkeypatch):
     calls = {"core": 0, "draw": 0, "grad": 0, "prep": 0}
     orig = td.make_block_step_fns
 
-    def counting(model_, cfg_):
-        prep, mut_init, draw, core, admin, grad, finish = orig(model_, cfg_)
+    def counting(model_, cfg_, psharding=None):
+        prep, mut_init, draw, core, admin, grad, finish = orig(
+            model_, cfg_, psharding)
 
         def prep2(s):
             calls["prep"] += 1

@@ -263,23 +263,22 @@ def test_gradient_kinds_refused_up_front(argv, match):
     assert match in str(info.value)
 
 
-@pytest.mark.parametrize("argv", [
-    ["run", "--model", "banana", "--mesh", "2"],
-    ["run", "--model", "banana", "--resampling", "ring"],
-    ["resume", "--checkpoint", "x.npz", "--model", "banana", "--mesh", "2"],
-    ["ensemble", "--datasets", "2", "--resampling", "ring"],
-])
-def test_multi_gpu_flags_refused(argv, tmp_path):
-    with pytest.raises(NotImplementedError, match="item 12"):
-        main(argv + ["--outdir", str(tmp_path)] + CPU)
-    assert os.listdir(tmp_path) == []
-
-
-def test_run_with_artifacts_refuses_a_mesh(tmp_path):
-    from smc_tpu_torch.runner import run_with_artifacts
-    with pytest.raises(NotImplementedError, match="item 12"):
-        run_with_artifacts(BananaModel(device="cpu"),
-                           SMCConfig(n_particles=64), 0, mesh=object())
+@pytest.mark.parametrize("cmd", ["run", "ensemble"])
+def test_ring_resampling_on_one_device_is_residual_systematic(cmd, tmp_path,
+                                                              capsys):
+    """--resampling ring without --mesh is the residual-systematic run, its
+    output bit for bit (the ring redistributes across processes only;
+    tests/test_torch_mesh_ops.py runs it on a mesh)."""
+    argv = (["run", "--model", "mm", "--mm-method", "exact",
+             "--particles", "128", "--max-steps", "3"] if cmd == "run" else
+            ["ensemble", "--datasets", "2", "--particles", "64",
+             "--max-steps", "3"])
+    outs = []
+    for extra in ([], ["--resampling", "ring"]):
+        main(argv + extra + ["--outdir", str(tmp_path / str(len(outs)))]
+             + CPU)
+        outs.append(capsys.readouterr().out.split("artifacts:")[0])
+    assert outs[0] == outs[1] and "gamma" in outs[0]
 
 
 def test_run_with_artifacts_logs_the_error(tmp_path):

@@ -626,13 +626,14 @@ def test_take_datasets(data):
 
 
 def test_mesh_raises_and_state_round_trips(data):
+    """A mesh needs its processes: outside a process group ``make_mesh``
+    raises, naming torchrun (the ensemble on a mesh:
+    tests/test_torch_sharding_methanation.py). The state round-trips
+    through its arrays."""
+    from smc_tpu_torch.parallel.mesh import make_mesh
     prior, loglik, tobs = _port_problem(data)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        make_ensemble_run(prior, loglik, D, SMCConfig(n_particles=N),
-                          mesh=object())
-    with pytest.raises(NotImplementedError):
-        run_ensemble_on_device(0, prior, loglik, tobs, D,
-                               SMCConfig(n_particles=N), mesh=object())
+    with pytest.raises(ValueError, match="torchrun"):
+        make_mesh(2)
     s = te.init_ensemble(1, prior, loglik, tobs, D, SMCConfig(n_particles=N))
     assert s.n_particles == N and s.dim == 3
     arrays = convert.ensemble_state_to_numpy(s)

@@ -22,7 +22,9 @@ Jacobians and the cr/babe solvers; a graphed MALA run against eager),
 and the operations layer: the CLI's run on the main path, its resume
 from each checkpoint format and a ``run_resilient`` recovery, each
 bit-equal to ``run_smc``; a ``--profile`` trace naming kernels 1-3; the
-card's memory report; an NCCL process group of one.
+card's memory report; an NCCL process group of one; collectives of a
+mesh of one NCCL rank captured in a CUDA graph, and ``--mesh 1`` under a
+one-process ``torchrun`` bit-equal to ``run_smc``.
 
 Every test here needs an NVIDIA GPU with nvcc and skips without one (the
 ``cuda`` fixture decides, inside the test). This file imports neither JAX
@@ -1231,3 +1233,70 @@ def test_initialize_distributed_nccl_world_size_one(cuda):
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
+
+
+def test_nccl_collectives_captured_in_a_cuda_graph(cuda):
+    """A mesh of one NCCL rank: after one eager collective per group
+    (``warm_up``), all-reduces and an all-gather record into a CUDA graph
+    and replay on new inputs; each replay counts its collectives."""
+    import socket
+    import torch.distributed as dist
+    from smc_tpu_torch.parallel.mesh import make_mesh, particle_sharding
+    from smc_tpu_torch.parallel.multihost import initialize_distributed
+    from smc_tpu_torch.smc import graphs
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    try:
+        initialize_distributed(f"tcp://127.0.0.1:{port}", 1, 0, device=cuda)
+        psh = particle_sharding(make_mesh())
+        assert psh.capturable and psh.particles.size == 1
+        psh.warm_up(cuda)
+        x = torch.arange(6, dtype=torch.float32, device=cuda)
+
+        def body():
+            y = psh.particles.sum(x * 2)
+            m = psh.particles.max(torch.amax(y))
+            return torch.cat([psh.particles.gather(y)[0] + m,
+                              psh.world.any(torch.any(y > 100)).float()[None]])
+        graphs.warm_up(body, cuda)
+        graph, launches, out = graphs.capture(body)
+        assert launches[("collective", "all_reduce_sum")] == 1
+        _build.reset_launch_counts()
+        x.add_(1)
+        graphs.replay(graph, launches)
+        torch.cuda.synchronize()
+        assert out.tolist() == [14.0, 16.0, 18.0, 20.0, 22.0, 24.0, 0.0]
+        assert _build.collective_counts["all_gather"] == 1
+        assert _build.collective_counts["all_reduce_max"] == 2
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def test_cli_mesh_one_under_torchrun_is_the_library_run(cuda, tmp_path,
+                                                        mm_main_run):
+    """``torchrun --nproc-per-node 1 -m smc_tpu_torch.cli run --mesh 1`` on
+    the main path (pallas_exact, N = 1e5): the sharded run's posterior is
+    run_smc's, bit for bit (the collectives of one NCCL rank inside the
+    step's graphs)."""
+    import glob
+    import os
+    import subprocess
+    import sys
+    import numpy as np
+    _, _, want = mm_main_run
+    env = dict(os.environ)
+    for v in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        env.pop(v, None)
+    out = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
+         "1", "--standalone", "-m", "smc_tpu_torch.cli", "run",
+         "--model", "mm", "--mm-method", "pallas_exact", "--particles",
+         str(_N_CLI), "--mesh", "1", "--outdir", str(tmp_path), "--quiet"],
+        capture_output=True, text=True, timeout=600, env=env)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "gamma: 1.0" in out.stdout
+    (path,) = glob.glob(str(tmp_path / "*" / "Posterior_Distribution.csv"))
+    got = np.loadtxt(path, delimiter=",", skiprows=1)
+    np.testing.assert_array_equal(got, want.particles.double().cpu().numpy())

@@ -266,13 +266,6 @@ def test_smcd_slabs_bound_host_memory(tmp_path):
     assert peak < arrays["particles"].nbytes // 4, peak
 
 
-def test_sharding_is_not_ported(tmp_path):
-    path = _port_save("npz", str(tmp_path / "s"),
-                      _port_state(_arrays(np.random.default_rng(4))))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        TC.load_state(path, sharding=object(), device="cpu")
-
-
 def test_rundir_and_config_archive(tmp_path):
     rd = RunDir(root=str(tmp_path), tag="mm", timestamp="20260101_000000")
     for s in RunDir.SUBDIRS:

@@ -244,17 +244,23 @@ def test_failed_or_degenerate_particles_never_give_nan(pair):
 
 
 def test_what_is_not_ported_raises():
-    """Only the lane mesh still refuses (ROADMAP Queue 1 item 12); the
-    steady march, the tangent-built Jacobians and the cr/babe solvers
-    construct (tests/test_torch_steady.py, test_torch_solvers.py); an
-    unknown solver, engine, march or Jacobian mode is an error, and so is
+    """Nothing refuses any more: the steady march, the tangent-built
+    Jacobians and the cr/babe solvers construct
+    (tests/test_torch_steady.py, test_torch_solvers.py), and so does a
+    lane mesh whose "data" axis divides the conditions
+    (tests/test_torch_sharding_methanation.py); one that does not is an
+    error, as is an unknown solver, engine, march or Jacobian mode, and
     babe at an even nx. The blocked engine and the CSV readers are ported
     (tests/test_torch_blocked.py, tests/test_torch_io.py)."""
     cond = TM.make_condition_table(NC, nx=NX, device="cpu")
     base = dict(cond=cond, obs=torch.zeros((5, NC)),
                 prior=TM.methanation_prior(device="cpu"), nx=NX)
-    with pytest.raises(NotImplementedError):
-        TM.MethanationModel(**base, lane_mesh=object())
+
+    class ThreeDataRanks:
+        def size(self, axis):
+            return 3
+    with pytest.raises(ValueError, match="do not divide"):
+        TM.MethanationModel(**base, lane_mesh=ThreeDataRanks())
     for kw in (dict(march="steady"), dict(jac_mode="cd"),
                dict(jac_mode="ad"), dict(solver="cr"), dict(solver="babe"),
                dict(march="steady", jac_mode="ad", solver="babe")):

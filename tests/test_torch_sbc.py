@@ -132,10 +132,6 @@ def test_sbc_errors():
         tsbc.sbc_ranks(0, prior, simulate, loglik, 4,
                        SMCConfig(n_particles=64, max_steps=2),
                        n_rank_draws=31)
-    with pytest.raises(NotImplementedError):
-        tsbc.sbc_ranks(0, prior, simulate, loglik, 4,
-                       SMCConfig(n_particles=64), n_rank_draws=31,
-                       mesh=object())
     with pytest.raises(ValueError, match="narrow default prior"):
         tsbc.methanation_sbc_problem(est_idx=(0, 1, 8), device="cpu")
 

@@ -12,38 +12,13 @@ import torch
 
 import jax
 
+from tests.torch_mesh import ReplayDraws  # noqa: F401
+
 torch.set_num_threads(1)
 try:
     torch.set_num_interop_threads(1)
 except RuntimeError:     # already set, or inter-op work already started
     pass
-
-
-class ReplayDraws:
-    """The port's ``Draws`` interface served from a fixed list of
-    ("uniform" | "normal", array) entries, in order; the kind and shape of
-    every request must match the next entry."""
-
-    def __init__(self, entries):
-        self.entries = list(entries)
-        self.used = 0
-
-    def _next(self, kind, shape):
-        if self.used >= len(self.entries):
-            raise AssertionError(f"replay exhausted at a {kind} draw")
-        k, arr = self.entries[self.used]
-        self.used += 1
-        arr = np.asarray(arr)
-        if k != kind or tuple(arr.shape) != tuple(shape):
-            raise AssertionError(f"replay expected {k}{arr.shape}, got "
-                                 f"{kind}{tuple(shape)}")
-        return torch.from_numpy(arr.astype(np.float32))
-
-    def uniform(self, shape, dtype=torch.float32):
-        return self._next("uniform", shape)
-
-    def normal(self, shape, dtype=torch.float32):
-        return self._next("normal", shape)
 
 
 class RecordingDraws:
