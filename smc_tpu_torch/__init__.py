@@ -5,8 +5,9 @@ systematic, stratified, multinomial) resampling and adaptive random-walk
 Metropolis, preconditioned MALA or HMC mutation, on torch tensors; and
 multi-start MAP estimation (``map_estimate``). The gradient kinds and MAP
 differentiate the likelihood with ``torch.autograd``, so they need one it
-differentiates (MM ``exact`` or ``rk4``, the synthetic targets): the CUDA
-likelihood kernels have no backward and refuse.
+differentiates (MM ``exact`` or ``rk4``, the methanation model, the
+synthetic targets): the CUDA MM likelihood kernels have no backward and
+refuse; the methanation march's block-Thomas kernels have one.
 The JAX package ``smc_tpu`` beside it is the reference; nothing here imports
 it or JAX. Entry points run on CUDA unless the caller passes
 ``device="cpu"``. On CUDA the Michaelis-Menten likelihoods

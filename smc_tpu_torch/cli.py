@@ -146,15 +146,6 @@ def _build_model(args):
         m = MichaelisMentenModel.default(method=args.mm_method, device=dev)
         return m, [MM_TRUE_VMAX, MM_TRUE_KM, MM_TRUE_NOISE]
     if args.model == "methanation":
-        if gradient:
-            # run/resume take no --march: the default transient march runs
-            # through the block-Thomas kernels, which have no backward.
-            _refuse_gradient(
-                args, "the methanation model's transient march runs through "
-                "the block-Thomas CUDA kernels, which have no backward. The "
-                "steady march differentiates: MethanationModel(march="
-                "'steady') through the library, or the map command's "
-                "--march steady")
         import os
         from smc_tpu_torch.models.methanation import (MethanationModel,
                                                       KIN_TRUE, SIGMA_TRUE)

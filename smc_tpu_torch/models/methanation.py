@@ -28,8 +28,9 @@ march with the lagged Jacobian, or the steady march (``march="steady"``,
 per-lane pseudo-transient continuation) whose gradient is the
 implicit-function adjoint (``_make_steady_solve``); Jacobian blocks in
 closed form (``jac_mode="full"``), in part (``"cd"``) or wholly (``"ad"``)
-by tangent passes; the block-Thomas kernels of ``ops/thomas_cuda.py`` or
-the plain "thomas", "cr" and "babe" solvers. The per-system engine
+by tangent passes; the block-Thomas kernels of ``ops/thomas_cuda.py``
+(differentiable: the transposed-solve kernel is their backward) or the
+plain "thomas", "cr" and "babe" solvers. The per-system engine
 (``engine="blocked"``, ``ops/dae.py``: local Jacobians by
 ``torch.func.jacfwd``, block-Thomas through ``ops/linalg.py``) is the
 oracle of the lanes-major one. The CSV readers and writer of the condition
@@ -841,8 +842,9 @@ class MethanationModel:
     # block-Thomas kernels (their plain versions on the CPU); "thomas" = the
     # plain loops on any device; "cr" = block cyclic reduction; "babe" =
     # the two-ended block-Thomas sweep (odd nx). See
-    # ops.dae_fast.resolve_solver. The kernels have no backward: a
-    # transient march's gradient needs a plain solver.
+    # ops.dae_fast.resolve_solver. Under a gradient the kernels solve
+    # through ops.thomas_cuda.block_thomas_solve_pl, whose backward is the
+    # transposed-solve kernel.
     solver: str = "auto"
     # Particles are processed in chunks of (chunk x n_data) simultaneous DAE
     # systems, which bounds the live Jacobian working set
@@ -1049,22 +1051,13 @@ class MethanationModel:
 
         Gradients (a theta that requires grad: the gradient mutations,
         MAP): with ``march="steady"`` through the implicit-function adjoint,
-        whatever the solver; with ``march="transient"`` through the plain
-        loops of "thomas", "cr" or "babe" (the JAX package differentiates
-        through its XLA scan). The kernel solvers ("auto", "thomas_pl")
-        have no backward and raise ``ValueError``.
+        whatever the solver; with ``march="transient"`` through the march
+        itself, as the JAX package differentiates its XLA scan: on "auto"
+        and "thomas_pl" the block-Thomas kernels with the transposed-solve
+        kernel as their backward (``ops/thomas_cuda.py::
+        block_thomas_solve_pl``), on "thomas", "cr" and "babe" the plain
+        loops.
         """
-        if (theta.requires_grad and torch.is_grad_enabled()
-                and self.engine == "batch_last"
-                and self.march == "transient"
-                and resolve_solver(self.solver) == "thomas_pl"):
-            raise ValueError(
-                "the gradient mutations (mala, hmc) and MAP need a "
-                "differentiable log-likelihood, and the transient march on "
-                f"solver {self.solver!r} carries no autograd graph: the CUDA "
-                "block-Thomas kernels have no backward, as the JAX "
-                "package's Pallas kernels have none; use march='steady' or "
-                "solver='thomas'")
         if self.lane_mesh is not None:
             return self._lane_mesh_log_likelihood(theta)
         flows, sigma = self._flows_and_sigma(theta)

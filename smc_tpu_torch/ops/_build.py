@@ -29,7 +29,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("mm_exact.cu", "mm_rk4.cu", "ladder.cu", "merge.cu",
-           "thomas_factor.cu", "thomas_apply.cu")
+           "thomas_factor.cu", "thomas_apply.cu", "thomas_apply_t.cu")
 HEADERS = ("ring.cuh", "div_rn.cuh")  # included by sources; in the hash
 # IEEE expf/logf/division throughout: no --use_fast_math.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
@@ -56,10 +56,13 @@ _SIGNATURES = {
     # LU, Ms, C, rhs, x, nx, nb, stream (factor column stride 8, then 7)
     "thomas_apply_launch": (_P, _P, _P, _P, _P, _I, _I, _P),
     "thomas_apply_tiled_launch": (_P, _P, _P, _P, _P, _I, _I, _P),
+    # LU, Ms, C, g, lam, nx, nb, cs, stream (the transposed solve)
+    "thomas_apply_t_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     # cs, nx, int[5] out: registers, shared bytes per block, blocks per
     # SM, spilled bytes, lanes per block (no launch)
     "thomas_factor_info": (_I, _I, _P),
     "thomas_apply_info": (_I, _I, _P),
+    "thomas_apply_t_info": (_I, _I, _P),
 }
 
 # Launches of each kernel since the last reset (plain ints; each wrapper
@@ -69,7 +72,7 @@ _SIGNATURES = {
 # graph, ``count_replay`` adds them for each replay (smc/graphs.py).
 launch_counts = {"mm_exact": 0, "mm_rk4": 0, "ladder": 0, "merge": 0,
                  "thomas_factor": 0, "thomas_apply": 0,
-                 "thomas_apply_tiled": 0}
+                 "thomas_apply_tiled": 0, "thomas_apply_t": 0}
 
 # Collectives of a sharded run since the last reset (parallel/mesh.py):
 # per kind the calls and, under "<kind>_bytes", the bytes each rank put

@@ -12,10 +12,11 @@ Pieces:
   pivoting on (7, 7, B) / rhs (7, k, B), elementwise selects only.
 - ``lu7_nopivot`` / ``lu7_solve`` / ``lu7_solve_T``: no-pivot LU and its
   solves, in the reference's operation order; ``lu7_pivot`` / ``lu7_pivot_solve``: LU with a stored permutation.
-- ``block_thomas_factor`` / ``block_thomas_apply``: the block-tridiagonal
-  factor and solve as Python loops over NX. They are the plain versions of
-  the CUDA kernels in ``ops/thomas_cuda.py``; the march on the card never
-  calls them.
+- ``block_thomas_factor`` / ``block_thomas_apply`` /
+  ``block_thomas_apply_t``: the block-tridiagonal factor, its solve and the
+  transposed system's solve with the same factors, as Python loops over
+  NX. They are the plain versions of the CUDA kernels in
+  ``ops/thomas_cuda.py``; the march on the card never calls them.
 - ``block_thomas_babe_factor`` / ``_apply``: the two-ended elimination
   (both chains advance together, stacked on the lane axis);
   ``block_cr_factor`` / ``_apply``: block cyclic reduction.
@@ -32,7 +33,11 @@ unrolled ones. The plain loops are differentiable by autograd (the
 transient likelihood's gradient on ``solver="thomas"``, ``"cr"``,
 ``"babe"``): where a tensor that autograd tracks would be written in place
 after a view of it was saved, the helpers write into a copy instead (only
-while autograd records; the values are the same).
+while autograd records; the values are the same). On ``"auto"`` /
+``"thomas_pl"`` a march whose blocks or right-hand sides autograd tracks
+factors the detached blocks with the factor kernel and solves through
+``ops/thomas_cuda.py::block_thomas_solve_pl``, whose backward is the
+transposed-solve kernel; untracked, it launches what it always did.
 """
 from __future__ import annotations
 
@@ -228,6 +233,34 @@ def block_thomas_apply(LUs, ms, C, rhs):
         xi = lu7_solve(blk(LUs[i]), t[:, None, :])[:, 0, :]
         x[i] = xi
     return x
+
+
+def block_thomas_apply_t(LUs, ms, C, g):
+    """Solve the TRANSPOSED system M^T lam = g with the factors of
+    :func:`block_thomas_factor` (no pivoting). g (NX, n, Bt) -> lam.
+
+    The factors are M = L U: L has identity diagonal blocks and m_i below
+    them, U has D_i (the matrix LU_i factors) on the diagonal and C_i above
+    it. So M^T = U^T L^T, solved by a forward sweep
+    z_0 = D_0^-T g_0, z_i = D_i^-T (g_i - C_{i-1}^T z_{i-1}), then a
+    backward one: lam_last = z_last, lam_i = z_i - m_{i+1}^T lam_{i+1}.
+    Accepts column-padded factors, as :func:`block_thomas_apply` does."""
+    nx, nf = g.shape[0], g.shape[1]
+
+    def blkT(M):                       # the (n, n, Bt) block, transposed
+        return M[:, :nf].transpose(0, 1)
+    lam = torch.empty_like(g)
+    z = lu7_solve_T(LUs[0][:, :nf], g[0][:, None, :])[:, 0, :]
+    lam[0] = z                   # lam holds z on the way forward
+    for i in range(1, nx):
+        t = g[i] - _matvec_bl(blkT(C[i - 1]), z)
+        z = lu7_solve_T(LUs[i][:, :nf], t[:, None, :])[:, 0, :]
+        lam[i] = z
+    li = z
+    for i in range(nx - 2, -1, -1):
+        li = lam[i] - _matvec_bl(blkT(ms[i + 1]), li)
+        lam[i] = li
+    return lam
 
 
 def _cat(t, b):
@@ -621,6 +654,12 @@ def _newton_kit(rows_bl: Callable, y0: torch.Tensor, pivot: bool,
         # "cr": cyclic reduction; "babe": the two-ended sweep.
         if solver == "thomas_pl":
             from smc_tpu_torch.ops.thomas_cuda import block_thomas_factor_pl
+            if _tracks(A_, B_, C_):
+                # The kernel factors the detached blocks; the applies take
+                # the tracked ones beside the factors, for their backward.
+                LUs, ms, Cd = block_thomas_factor_pl(
+                    A_.detach(), B_.detach(), C_.detach())
+                return LUs, ms, Cd, (A_, B_, C_)
             return block_thomas_factor_pl(A_, B_, C_)
         A_, B_, C_ = A_[:, :, :nf], B_[:, :, :nf], C_[:, :, :nf]
         if solver == "cr":
@@ -636,14 +675,13 @@ def _newton_kit(rows_bl: Callable, y0: torch.Tensor, pivot: bool,
         elif solver == "babe":
             delta = block_thomas_babe_apply(fac, rhs)
         elif solver == "thomas_pl":
-            from smc_tpu_torch.ops.thomas_cuda import (
-                block_thomas_apply_pl, block_thomas_apply_tiled)
-            LUs, ms, C_ = fac
-            # Unpadded factors take the stride-7 entry point, padded ones
-            # the stride-8 one.
-            fn = (block_thomas_apply_tiled if LUs.shape[2] == nf
-                  else block_thomas_apply_pl)
-            delta = fn(LUs, ms, C_, rhs)
+            from smc_tpu_torch.ops.thomas_cuda import block_thomas_solve_pl
+            LUs, ms, C_ = fac[:3]
+            # The apply kernel of the factors' width; under a gradient its
+            # backward is the transposed kernel. The blocks only route the
+            # gradient, so untracked factors stand in for them.
+            A_, B_, Ct = fac[3] if len(fac) == 4 else (C_, C_, C_)
+            delta = block_thomas_solve_pl(A_, B_, Ct, LUs, ms, rhs)
         else:
             delta = block_thomas_apply(*fac, rhs)
         return delta.movedim(0, 1)

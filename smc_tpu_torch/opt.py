@@ -83,7 +83,8 @@ def map_estimate(model, key, n_starts: int = 8, steps: int = 800,
     seen; then each restarts from its best with Adam at ``lr * 0.02`` for
     ``steps // 4`` updates. Returns the best start's and every start's
     result. The model's likelihood must be differentiable (MM ``exact`` or
-    ``rk4``; the CUDA kernels have no backward and raise ValueError)."""
+    ``rk4``, the methanation model; the CUDA MM kernels have no backward
+    and raise ValueError)."""
     prior = model.prior
     uni = prior.kind == UNIFORM
     width = prior.high - prior.low

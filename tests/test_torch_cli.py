@@ -244,23 +244,40 @@ def test_cli_map(capsys):
 # -- refusals ---------------------------------------------------------------
 
 @pytest.mark.parametrize("argv,match", [
-    (["run", "--model", "methanation", "--mutation", "mala"],
-     "march='steady'"),
-    (["resume", "--checkpoint", "x.npz", "--model", "methanation",
-      "--mutation", "hmc"], "--march steady"),
     (["run", "--model", "mm", "--mm-method", "pallas_exact", "--mutation",
       "mala"], "exact/rk4/dopri5"),
     (["run", "--model", "mm", "--mm-method", "pallas", "--mutation",
       "hmc"], "exact/rk4/dopri5"),
 ])
 def test_gradient_kinds_refused_up_front(argv, match):
-    """A gradient mutation on a likelihood the kernels compute exits before
-    any model is built (the methanation refusal names the routes that do
-    differentiate)."""
+    """A gradient mutation on a likelihood the MM kernels compute exits
+    before any model is built, as the JAX command's does."""
     with pytest.raises(SystemExit) as info:
         main(argv + ["--device", "cpu"])
     assert "needs a differentiable likelihood" in str(info.value)
     assert match in str(info.value)
+
+
+@pytest.mark.parametrize("kind", ["mala", "hmc"])
+def test_methanation_gradient_kinds_run(kind, tmp_path, capsys):
+    """``run --model methanation --mutation mala|hmc`` runs, as the JAX
+    command does (the default transient march differentiates through the
+    block-Thomas kernels' route), at the smallest sizes the command takes,
+    and ends bit-equal to ``run_smc`` with the same seed."""
+    from smc_tpu_torch.models.methanation import MethanationModel
+    rc = main(["run", "--model", "methanation", "--mutation", kind,
+               "--conditions", "2", "--nx", "11", "--chunk", "4",
+               "--particles", "4", "--max-steps", "1", "--mh-steps", "1",
+               "--mh-steps-final", "1", "--hmc-leapfrog", "2",
+               "--outdir", str(tmp_path)] + CPU)
+    assert rc == 0
+    m = MethanationModel.default(n_conditions=2, nx=11, particle_chunk=4,
+                                 device="cpu")
+    want = run_smc(m, SMCConfig(n_particles=4, max_steps=1, mh_steps=1,
+                                mh_steps_final=1, mutation=kind,
+                                hmc_leapfrog=2), 0, verbose=False)
+    assert int(want.step) == 1
+    assert_same_run(_final(_run_dir(tmp_path)), want)
 
 
 @pytest.mark.parametrize("cmd", ["run", "ensemble"])

@@ -2,7 +2,9 @@
 plain PyTorch version on the card, the wrappers' input checks, a short run
 of the Michaelis-Menten main path through its three kernels, the
 block-Thomas kernels at lane counts around their 32-lane tiles and at the
-march's width (and their refusal of inputs autograd tracks), a methanation likelihood through them, the RK4 likelihood
+march's width (and their refusal of inputs autograd tracks), the
+transposed-solve kernel and the solve's backward through it, a methanation
+likelihood and its gradient through them, the RK4 likelihood
 kernel with and without its population axis, the ladder and merge kernels
 under the ensemble's population axis (unaligned rows, K = 1 and 200, the
 merge's zero-count runs where it cuts its pieces) and replayed in one
@@ -271,7 +273,8 @@ def test_thomas_column_strides_give_equal_bits(cuda):
 def test_thomas_march_width_is_not_refused(cuda):
     """At the march's shape (51, 15,360) the ring fits: every kernel has a
     resident block per SM within the card's shared memory, and launches."""
-    for name in ("thomas_factor", "thomas_apply", "thomas_apply_tiled"):
+    for name in ("thomas_factor", "thomas_apply", "thomas_apply_tiled",
+                 "thomas_apply_t"):
         info = tc.kernel_info(name, 51)
         assert info["blocks_per_sm"] >= 1 and info["spill_bytes"] == 0
         assert 0 < info["smem_bytes"] <= 227 * 1024
@@ -280,11 +283,13 @@ def test_thomas_march_width_is_not_refused(cuda):
     LU, ms, _ = tc.block_thomas_factor_pl(A, B, C)
     x = tc.block_thomas_apply_tiled(LU, ms, C, r)
     tc.block_thomas_apply_pl(*tc.pad_factors(LU, ms, C), r)
+    lam = tc.block_thomas_apply_t_pl(LU, ms, C, r)
     torch.cuda.synchronize()
-    assert torch.isfinite(x).all()
+    assert torch.isfinite(x).all() and torch.isfinite(lam).all()
     assert (_build.launch_counts["thomas_factor"],
             _build.launch_counts["thomas_apply_tiled"],
-            _build.launch_counts["thomas_apply"]) == (1, 1, 1)
+            _build.launch_counts["thomas_apply"],
+            _build.launch_counts["thomas_apply_t"]) == (1, 1, 1, 1)
 
 
 def test_thomas_singular_pivot_stays_in_its_lane(cuda):
@@ -325,18 +330,23 @@ def test_thomas_wrappers_launch_or_raise(cuda, monkeypatch):
         tc.block_thomas_apply_tiled(LU, ms, C, r)
     with pytest.raises(RuntimeError, match="nvcc failed"):
         tc.block_thomas_apply_pl(LU, ms, C, r)
+    monkeypatch.setattr(tc, "block_thomas_apply_t_plain", plain_must_not_run)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        tc.block_thomas_apply_t_pl(LU, ms, C, r)
 
 
 def test_thomas_wrappers_refuse_tracked_inputs_on_the_card(cuda):
-    """The kernels have no backward: an input that autograd tracks is a
-    ValueError before anything launches, and the same call under no_grad
-    launches as usual."""
+    """The factor and the applies have no backward (the solve's route is
+    block_thomas_solve_pl): an input that autograd tracks is a ValueError
+    before anything launches, and the same call under no_grad launches as
+    usual."""
     A, B, C, r = _blocks(cuda, 5, 32, 1)
     LU, ms, _ = tc.block_thomas_factor_pl(A, B, C)
     before = dict(_build.launch_counts)
     for fn, args in ((tc.block_thomas_factor_pl, (A, B, C)),
                      (tc.block_thomas_apply_pl, (LU, ms, C, r)),
-                     (tc.block_thomas_apply_tiled, (LU, ms, C, r))):
+                     (tc.block_thomas_apply_tiled, (LU, ms, C, r)),
+                     (tc.block_thomas_apply_t_pl, (LU, ms, C, r))):
         tracked = (args[0].clone().requires_grad_(True),) + args[1:]
         with pytest.raises(ValueError, match="no backward"):
             fn(*tracked)
@@ -369,6 +379,85 @@ def test_methanation_likelihood_launches_the_thomas_kernels(cuda):
     assert dict(_build.launch_counts) == counts
     assert torch.isfinite(ll).all() and (flows != -10000.0).all()
     torch.testing.assert_close(flows, want, rtol=0, atol=0.05)
+
+
+@pytest.mark.parametrize("nx,b", [(51, 15360), (51, 1037), (1, 5), (2, 33),
+                                  (80, 64)])
+def test_thomas_apply_t_kernel_matches_plain(cuda, nx, b):
+    """The transposed solve (csrc/thomas_apply_t.cu) against its plain
+    version on kernel 6's factors: within 1e-5 of the largest |lam| at the
+    march's width (1e-4 per lane elsewhere), the 8-column entry the same
+    bits, one launch; at one row, two rows (the ring longer than the
+    sweep) and at 80 rows (z kept in lam, not in shared memory)."""
+    A, B, C, g = _blocks(cuda, nx, b, 5 * nx + b)
+    LU, ms, _ = tc.block_thomas_factor_pl(A, B, C)
+    _build.reset_launch_counts()
+    lam = tc.block_thomas_apply_t_pl(LU, ms, C, g)
+    assert _build.launch_counts["thomas_apply_t"] == 1
+    want = tc.block_thomas_apply_t_plain(LU, ms, C, g)
+    assert float((lam - want).abs().max()) <= 1e-5 * float(
+        want.abs().max())
+    assert _lane_rel(lam, want) < 1e-4
+    assert torch.equal(tc.block_thomas_apply_t_pl(
+        *tc.pad_factors(LU, ms, C), g), lam)
+
+
+def test_solve_backward_on_the_card_matches_the_cpu(cuda):
+    """block_thomas_solve_pl's gradient (blocks and rhs) on the card, its
+    forward through the apply kernel and its backward through the
+    transposed kernel (one launch each), against the same solve's on the
+    CPU (plain loops both ways): 1e-5 of each cotangent's largest entry."""
+    A, B, C, r = _blocks(cuda, 51, 1037, 9)
+    w = torch.randn_like(r)
+    grads = {}
+    for dev in (cuda, torch.device("cpu")):
+        ins = [t.to(dev).clone().requires_grad_(True) for t in (A, B, C, r)]
+        LU, ms, _ = tc.block_thomas_factor_pl(*(t.detach()
+                                               for t in ins[:3]))
+        _build.reset_launch_counts()
+        x = tc.block_thomas_solve_pl(*ins[:3], LU, ms, ins[3])
+        grads[dev.type] = torch.autograd.grad((x * w.to(dev)).sum(), ins)
+        if dev.type == "cuda":
+            assert (_build.launch_counts["thomas_apply_tiled"],
+                    _build.launch_counts["thomas_apply_t"]) == (1, 1)
+    for g, c in zip(grads["cuda"], grads["cpu"]):
+        assert float((g.cpu() - c).abs().max()) <= 1e-5 * float(
+            c.abs().max())
+
+
+def test_transient_gradient_on_auto_matches_the_plain_loops(cuda):
+    """The transient likelihood's gradient through the kernels ("auto")
+    against the plain loops' ("thomas") on the card, at draws near the
+    truth on a small lagged march: the same failed lanes, each parameter
+    within 1e-3 of its largest |g| over the particles that pass; the
+    launches of a likelihood-and-gradient: 13 factors, 61 applies and 61
+    transposed applies per chunk."""
+    import dataclasses
+
+    from smc_tpu_torch.models.methanation import KIN_TRUE, MethanationModel
+    m = MethanationModel.default(n_conditions=3, nx=11, particle_chunk=8,
+                                 device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    truth = torch.tensor(KIN_TRUE[:4] + (5.0,), device=cuda)
+    theta = truth * (1 + 0.005 * torch.randn((16, 5), generator=g,
+                                             device=cuda))
+    out = {}
+    for solver in ("auto", "thomas"):
+        t = theta.clone().requires_grad_(True)
+        _build.reset_launch_counts()
+        ll, flows = dataclasses.replace(m, solver=solver).log_likelihood(t)
+        (gr,) = torch.autograd.grad(ll.sum(), t)
+        out[solver] = (gr, flows.detach(), dict(_build.launch_counts))
+    (gk, fk, ck), (gp, fp, cp) = out["auto"], out["thomas"]
+    assert (ck["thomas_factor"], ck["thomas_apply_tiled"],
+            ck["thomas_apply_t"]) == (2 * 13, 2 * 61, 2 * 61)
+    assert not any(cp.values())
+    fail = (fk == -10000.0).all(dim=1)
+    assert torch.equal(fail, (fp == -10000.0).all(dim=1))
+    keep = ~fail.any(dim=1)
+    assert int(keep.sum()) >= 8
+    scale = gp[keep].abs().amax(dim=0)
+    assert bool(((gk - gp)[keep].abs() <= 1e-3 * scale).all())
 
 
 # ---- the RK4 likelihood, the population axis, the ensemble ----------------
@@ -698,6 +787,15 @@ def _graph_case(case, cuda):
         cfg = SMCConfig(n_particles=64, mh_steps=2, mh_steps_final=4)
         return (make_full_run_on_device(m, cfg),
                 lambda seed: _eager_run(m, cfg, seed))
+    if case.startswith("methanation_transient"):
+        from smc_tpu_torch.models.methanation import MethanationModel
+        m = MethanationModel.default(
+            n_conditions=3, nx=11, n_steps=12, growth=1.6, jac_stride=3,
+            dense_tail=3, particle_chunk=64, device=cuda)
+        cfg = SMCConfig(n_particles=64, mutation=case.split("_")[-1],
+                        hmc_leapfrog=3, mh_steps=2, mh_steps_final=3)
+        return (make_full_run_on_device(m, cfg),
+                lambda seed: _eager_run(m, cfg, seed))
     if case == "methanation_steady_mala":
         from smc_tpu_torch.models.methanation import MethanationModel
         m = MethanationModel.default(**dict(_STEADY_SMALL,
@@ -729,7 +827,9 @@ def _graph_case(case, cuda):
 
 @pytest.mark.parametrize("case", ["mm", "ensemble", "ensemble_pallas",
                                   "methanation", "mm_mala", "mm_hmc",
-                                  "ensemble_mala", "methanation_steady_mala"])
+                                  "ensemble_mala", "methanation_steady_mala",
+                                  "methanation_transient_mala",
+                                  "methanation_transient_hmc"])
 def test_graphed_run_is_bit_equal_to_the_eager_composition(cuda, case):
     """The graphed entry point (each piece of a step one CUDA graph replay)
     and the eager composition of the same pieces give the same final state,

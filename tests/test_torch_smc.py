@@ -205,13 +205,14 @@ def test_degenerate_covariance_rejects_instead_of_nan(models):
 
 
 def test_unported_options_raise(models):
-    """What still refuses: a gradient kind on a CUDA kernel's likelihood
-    (ValueError: the kernels have no backward), the MM kernels' and the
-    methanation transient march's on its default solver (the block-Thomas
-    kernels). MM ``method="dopri5"`` refused until item 11 ported it; it
-    builds now. The methanation likelihood refused every gradient until
-    item 8; ``tests/test_torch_methanation_grad.py`` tests the ones it
-    has now."""
+    """What still refuses: a gradient kind on a CUDA MM kernel's likelihood
+    (ValueError: the MM kernels have no backward). MM ``method="dopri5"``
+    refused until item 11 ported it; it builds now. The methanation
+    transient march on its default solver (the block-Thomas kernels)
+    refused a gradient kind until the kernels had a backward: a MALA
+    mutation on it now runs (one sweep here, finite particles and
+    log-likelihoods); ``tests/test_torch_thomas_grad.py`` and
+    ``tests/test_torch_methanation_grad.py`` test its gradient."""
     from smc_tpu_torch.models import methanation as TM
     from smc_tpu_torch.models.michaelis_menten import MichaelisMentenModel
     _, tm = models
@@ -227,9 +228,13 @@ def test_unported_options_raise(models):
         TM.condition_table_numpy(2, nx=11), np.zeros((5, 2), np.float32),
         TM.methanation_prior(device="cpu"), nx=11, device="cpu")
     xm = meth.prior.sample(convert.TorchDraws(0, "cpu"), 16)
-    with pytest.raises(ValueError, match="no backward"):
-        mutate(None, xm, torch.zeros(16), torch.tensor(0.5),
-               meth.log_likelihood, meth.prior, cfg)
+    out = mutate(convert.TorchDraws(1, "cpu"), xm,
+                 meth.log_likelihood(xm)[0], torch.tensor(0.5),
+                 meth.log_likelihood, meth.prior,
+                 cfg.replace(mh_steps=1, mh_steps_final=1))
+    assert int(out.n_steps) == 1 and out.particles.shape == xm.shape
+    assert bool(torch.isfinite(out.particles).all())
+    assert not bool(torch.isnan(out.log_lik).any())
 
 
 def test_log_evidence_and_posterior_match_analytic_conjugate():

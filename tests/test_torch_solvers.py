@@ -102,10 +102,14 @@ def test_thomas_factor_and_apply_match_jax():
                                      "block_thomas_apply_pl",
                                      "block_thomas_apply_tiled"])
 def test_kernel_wrappers_refuse_tracked_inputs(wrapper):
-    """The kernels have no backward: a wrapper given an input that autograd
-    tracks raises ValueError on the CPU too (its plain stand-in must not
-    differentiate where the card cannot), and runs under no_grad or on
-    detached inputs."""
+    """The factor and the two applies have no backward: each, given an
+    input that autograd tracks, raises ValueError on the CPU too (its plain
+    stand-in must not differentiate where the card cannot), and runs under
+    no_grad or on detached inputs. An apply's refusal names the route that
+    does differentiate, ``block_thomas_solve_pl`` with the blocks beside
+    their factors; fed the same tracked input there, the solve gives the
+    apply's values and the gradient autograd takes through the plain
+    factor and apply loops (1e-5 of its largest entry)."""
     from smc_tpu_torch.ops import thomas_cuda as TC
     A, B, C, rhs = _system(6, 11, permuted_outlet=False)
     tA, tB, tC, tr = map(torch.from_numpy, (A, B, C, rhs))
@@ -114,16 +118,33 @@ def test_kernel_wrappers_refuse_tracked_inputs(wrapper):
         wrapper, (LUs, ms, tC, tr))
     fn = getattr(TC, wrapper)
     tracked = (args[0].clone().requires_grad_(True),) + args[1:]
-    with pytest.raises(ValueError, match="no backward"):
+    with pytest.raises(ValueError, match="no backward") as info:
         fn(*tracked)
+    if wrapper != "block_thomas_factor_pl":
+        assert "block_thomas_solve_pl" in str(info.value)
     with torch.no_grad():
         got = fn(*tracked)
     want = fn(*args)
     for g, w in zip(got if isinstance(got, tuple) else (got,),
                     want if isinstance(want, tuple) else (want,)):
         assert torch.equal(g, w)
-    if wrapper != "block_thomas_factor_pl":
-        assert torch.equal(want, T.block_thomas_apply(LUs, ms, tC, tr))
+    if wrapper == "block_thomas_factor_pl":
+        return
+    assert torch.equal(want, T.block_thomas_apply(LUs, ms, tC, tr))
+    fac = (LUs, ms) if wrapper == "block_thomas_apply_tiled" else \
+        TC.pad_factors(LUs, ms, tC)[:2]
+    blocks = [t.clone().requires_grad_(True) for t in (tA, tB, tC, tr)]
+    x = TC.block_thomas_solve_pl(*blocks[:3], *fac, blocks[3])
+    assert torch.equal(x.detach(), want)
+    plain = [t.clone().requires_grad_(True) for t in (tA, tB, tC, tr)]
+    x_p = T.block_thomas_apply(*T.block_thomas_factor(*plain[:3]), plain[2],
+                               plain[3])
+    w = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        x.shape).astype(np.float32))
+    for g, gp in zip(torch.autograd.grad((x * w).sum(), blocks),
+                     torch.autograd.grad((x_p * w).sum(), plain)):
+        _close(g[:, :, :7].numpy() if g.dim() == 4 else g.numpy(),
+               gp.numpy(), 1e-5)
 
 
 @pytest.mark.parametrize("nx", [7, 11, 51])
@@ -179,11 +200,12 @@ def test_cr_matches_jax_and_thomas(nx):
     _close(T.block_cr_apply(fac, tr * 2.0).numpy(), 2.0 * x.numpy(), 1e-6)
 
 
-@pytest.mark.parametrize("solver", ["thomas", "cr", "babe"])
+@pytest.mark.parametrize("solver", ["thomas", "cr", "babe", "thomas_pl"])
 def test_plain_solvers_are_differentiable(solver):
     """The plain loops run under autograd (the transient likelihood's
     gradient): d(sum x)/d(rhs) equals the solve of the transposed system,
-    by every solver."""
+    by every solver; "thomas_pl" (the kernels' route, their plain versions
+    here) through ``block_thomas_solve_pl``'s backward."""
     A, B, C, rhs = _system(4, 11, permuted_outlet=False)
     tA, tC = torch.from_numpy(A), torch.from_numpy(C)
     tB = torch.from_numpy(B).requires_grad_(True)
