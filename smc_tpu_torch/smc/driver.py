@@ -10,6 +10,13 @@ the CPU the same pieces run eagerly. The host waits for the device once
 per step (is gamma below 1?) and once per mutation sweep after the first
 (is another due?); nothing else in a step reads a device value.
 
+While a ``torch.profiler`` session records, the loops record host spans
+(``utils/metrics.py``): ``smc.run`` around each run (its id carried by
+every span inside), ``smc.step`` around each step of
+:func:`make_smc_step`, ``smc.init_state``, ``smc.piece.<piece>`` around
+each piece call, and ``smc.read.step`` / ``smc.read.sweep`` around the
+flag reads of the step loop and of the sweep loop.
+
 - :func:`smc_step`: one step from the eager pieces (the un-captured
   reference of every graphed path).
 - :func:`make_sweep_step_fns`, :func:`make_smc_step`,
@@ -51,6 +58,7 @@ from smc_tpu_torch.smc.kernels import (find_gamma, make_mutation_parts,
                                        resample_uniforms, sweep_limit,
                                        sweep_until_done)
 from smc_tpu_torch.smc.state import SMCState
+from smc_tpu_torch.utils.metrics import span
 
 logger = logging.getLogger("smc_tpu_torch")
 
@@ -88,28 +96,32 @@ def init_state(key, model, cfg: SMCConfig,
     ``Draws``; the run's device is the model's. With ``psharding`` the
     state holds this process's rows (the global draw's, ``particles`` being
     them when given) and the slabs are slabs of those rows."""
-    dev = model.prior.device
-    draws = as_draws(key, dev)
-    if particles is None:
-        n_l = _local_n(cfg, psharding)
-        view = draws if psharding is None else psharding.view(draws, n_l)
-        particles = model.prior.sample(view, n_l, cfg.dtype)
-    n, b = particles.shape[0], cfg.block_particles
-    if b and b < n:
-        log_lik = torch.cat([model.log_likelihood(particles[lo:lo + b])[0]
-                             for lo in range(0, n, b)])
-    else:
-        log_lik, _ = model.log_likelihood(particles)
+    with span("smc.init_state"):
+        dev = model.prior.device
+        draws = as_draws(key, dev)
+        if particles is None:
+            n_l = _local_n(cfg, psharding)
+            view = (draws if psharding is None
+                    else psharding.view(draws, n_l))
+            particles = model.prior.sample(view, n_l, cfg.dtype)
+        n, b = particles.shape[0], cfg.block_particles
+        if b and b < n:
+            log_lik = torch.cat([
+                model.log_likelihood(particles[lo:lo + b])[0]
+                for lo in range(0, n, b)])
+        else:
+            log_lik, _ = model.log_likelihood(particles)
 
-    def scalar(v, dtype=cfg.dtype):
-        return torch.full((), v, dtype=dtype, device=dev)
-    zi = scalar(0, torch.int32)
-    return SMCState(
-        particles=particles, log_lik=log_lik, gamma=scalar(0.0), key=draws,
-        step=zi, ess=scalar(1.0), max_log_lik=torch.max(log_lik),
-        n_mh=zi, accepted=zi, n_gamma_reductions=zi, mh_ratio=scalar(1.0),
-        total_lik_evals=scalar(float(cfg.n_particles), torch.float32),
-        log_evidence=scalar(0.0))
+        def scalar(v, dtype=cfg.dtype):
+            return torch.full((), v, dtype=dtype, device=dev)
+        zi = scalar(0, torch.int32)
+        return SMCState(
+            particles=particles, log_lik=log_lik, gamma=scalar(0.0),
+            key=draws, step=zi, ess=scalar(1.0),
+            max_log_lik=torch.max(log_lik), n_mh=zi, accepted=zi,
+            n_gamma_reductions=zi, mh_ratio=scalar(1.0),
+            total_lik_evals=scalar(float(cfg.n_particles), torch.float32),
+            log_evidence=scalar(0.0))
 
 
 def _resample(g, state: SMCState, cfg: SMCConfig, psh=None):
@@ -266,10 +278,17 @@ def run_step(pieces, s, data=None, stop_file: Optional[str] = None,
         if _stop_requested(stop_file, psh, s.particles.device):
             raise StopRequested(stop_file)
 
-    p = pieces.prep(s, data)
-    c = sweep_until_done(*pieces.mut_init(s, p, data),
-                         lambda c: pieces.mut_sweep(s, p, c, data), poll)
-    return pieces.finish(s, p, c, data)
+    def sweep(c):
+        with span("smc.piece.mut_sweep"):
+            return pieces.mut_sweep(s, p, c, data)
+
+    with span("smc.piece.prep"):
+        p = pieces.prep(s, data)
+    with span("smc.piece.mut_init"):
+        c, more = pieces.mut_init(s, p, data)
+    c = sweep_until_done(c, more, sweep, poll)
+    with span("smc.piece.finish"):
+        return pieces.finish(s, p, c, data)
 
 
 def smc_step(state: SMCState, loglik_fn: LogLikFn, prior: Prior,
@@ -309,9 +328,12 @@ def _bound_pieces(stepper, names):
     (then the piece's other arguments), run on the state's device; None
     for a piece the programs do not have."""
     def piece(name):
+        label = "smc.piece." + name
+
         def call(s, *rest):
-            pcs, s, _ = stepper.programs.on(s.particles.device, s, None)
-            return getattr(pcs, name)(s, *rest)
+            with span(label):
+                pcs, s, _ = stepper.programs.on(s.particles.device, s, None)
+                return getattr(pcs, name)(s, *rest)
         return call
     return tuple(None if getattr(stepper.programs.pieces, n) is None
                  else piece(n) for n in names)
@@ -363,7 +385,7 @@ def _run_step_by_blocks(state: SMCState, cfg: SMCConfig, fns,
              else [grad_fn(state, p, lo) for lo in starts])
     c = mut_init(state, p, grads)
     more = None
-    while more is None or graphs.read(more):
+    while more is None or graphs.read(more, "sweep"):
         a = draw(state, c)
         outs = []
         for lo in starts:
@@ -408,21 +430,25 @@ class _Stepper:
 
     def step(self, state: SMCState) -> SMCState:
         """One step; the returned state is a copy."""
-        pcs, s, data = self.programs.on(state.particles.device, state, None)
-        return graphs.clone(run_step(pcs, s, data)[0])
+        with span("smc.step"):
+            pcs, s, data = self.programs.on(state.particles.device, state,
+                                            None)
+            return graphs.clone(run_step(pcs, s, data)[0])
 
     def run(self, state: Optional[SMCState], key=None) -> SMCState:
         """From ``state``, or from the prior draw with ``key``, to gamma =
         1 (or ``max_steps``); the returned state is a copy."""
-        dev = self.model.prior.device
-        pcs, s, data = self.programs.on(dev, state, None)
-        if s is None:
-            s, running = pcs.init(as_draws(key, dev), data)
-        else:
-            running = _running(s, self.cfg)
-        while graphs.read(running):
-            s, running = run_step(pcs, s, data)
-        return graphs.clone(s)
+        with span("smc.run", run=True):
+            dev = self.model.prior.device
+            pcs, s, data = self.programs.on(dev, state, None)
+            if s is None:
+                with span("smc.piece.init"):
+                    s, running = pcs.init(as_draws(key, dev), data)
+            else:
+                running = _running(s, self.cfg)
+            while graphs.read(running, "step"):
+                s, running = run_step(pcs, s, data)
+            return graphs.clone(s)
 
 
 def make_smc_step(model, cfg: SMCConfig, psharding=None):
@@ -482,36 +508,38 @@ def run_smc(model, cfg: SMCConfig, key,
             return run_step(pcs, s, data, poll, psh)
     if psh is not None and psh.world.rank != 0:
         verbose = False
-    dev = state.particles.device
-    running = _running(s, cfg)
-    t0 = time.perf_counter()
-    while graphs.read(running):
-        if _stop_requested(stop_file, psh, dev):
-            _say(f"run_smc: stop file {stop_file} present — returning at "
-                 f"step {int(s.step)} gamma={float(s.gamma):.6f}", warn=True)
-            break
-        try:
-            s, running = step(s)
-        except StopRequested:
-            _say(f"run_smc: stop requested mid-step — returning last "
-                 f"completed step {int(s.step)} gamma={float(s.gamma):.6f}",
+    with span("smc.run", run=True):
+        dev = state.particles.device
+        running = _running(s, cfg)
+        t0 = time.perf_counter()
+        while graphs.read(running, "step"):
+            if _stop_requested(stop_file, psh, dev):
+                _say(f"run_smc: stop file {stop_file} present — returning "
+                     f"at step {int(s.step)} gamma={float(s.gamma):.6f}",
+                     warn=True)
+                break
+            try:
+                s, running = step(s)
+            except StopRequested:
+                _say(f"run_smc: stop requested mid-step — returning last "
+                     f"completed step {int(s.step)} "
+                     f"gamma={float(s.gamma):.6f}", warn=True)
+                break
+            if verbose:
+                _say(f"iteration:{int(s.step)}, nMH:{int(s.n_mh)}, "
+                     f"Calculation time:{time.perf_counter() - t0:.3f}, "
+                     f"ESS:{float(s.ess):.4f}, "
+                     f"Max Likelihood:{float(s.max_log_lik):.4f}, "
+                     f"New Gamma:{float(s.gamma):.6f}, "
+                     f"Number of Adoption:{int(s.accepted)}")
+                if float(s.ess) < cfg.ess_limit:
+                    print(f"ess reduction warning: ess = {float(s.ess)}")
+            if callback is not None:
+                callback(graphs.clone(s))
+        if float(s.gamma) < 1.0:
+            _say(f"tempering didn't complete: last gamma = {float(s.gamma)}",
                  warn=True)
-            break
-        if verbose:
-            _say(f"iteration:{int(s.step)}, nMH:{int(s.n_mh)}, "
-                 f"Calculation time:{time.perf_counter() - t0:.3f}, "
-                 f"ESS:{float(s.ess):.4f}, "
-                 f"Max Likelihood:{float(s.max_log_lik):.4f}, "
-                 f"New Gamma:{float(s.gamma):.6f}, "
-                 f"Number of Adoption:{int(s.accepted)}")
-            if float(s.ess) < cfg.ess_limit:
-                print(f"ess reduction warning: ess = {float(s.ess)}")
-        if callback is not None:
-            callback(graphs.clone(s))
-    if float(s.gamma) < 1.0:
-        _say(f"tempering didn't complete: last gamma = {float(s.gamma)}",
-             warn=True)
-    return graphs.clone(s)
+        return graphs.clone(s)
 
 
 def make_run_on_device(model, cfg: SMCConfig, psharding=None):

@@ -57,6 +57,7 @@ from smc_tpu_torch.smc.kernels import (_over, find_gamma,
                                        make_mutation_sweeper,
                                        mutation_result, sweep_limit)
 from smc_tpu_torch.smc.state import SMCState
+from smc_tpu_torch.utils.metrics import span
 
 # loglik_fn(theta (D, N, d), data) -> (log_lik (D, N), aux)
 DataLogLik = Callable[[torch.Tensor, object], Tuple[torch.Tensor, object]]
@@ -235,34 +236,37 @@ def _run(programs: graphs.Programs, states: Optional[SMCState], key, data,
     stop file is polled before every step and every sweep after a step's
     first; the pre-step states go back, so the caller gets the last
     COMPLETED step either way."""
-    dev = data.device if states is None else states.particles.device
-    pcs, s, data = programs.on(dev, states, data)
-    if s is None:
-        s, running = pcs.init(as_draws(key, dev), data)
-    else:
-        running = _running(s, cfg)
-        if psh is not None:
-            running = psh.world.any(running)
-    while graphs.read(running):
-        if _stop_requested(stop_file, psh, dev):
-            print(f"run_ensemble_sweeps: stop file {stop_file} present — "
-                  f"returning at max step {int(s.step.max())}", flush=True)
-            break
-        try:
-            s, running = run_step(pcs, s, data, stop_file, psh)
-        except StopRequested:
-            print(f"run_ensemble_sweeps: stop file {stop_file} present "
-                  f"mid-step — returning last completed step "
-                  f"{int(s.step.max())}", flush=True)
-            break
-        if verbose:
-            ng = s.gamma.cpu()
-            print(f"ensemble step: {int(s.step.max())}  "
-                  f"gamma<1: {int((ng < 1.0).sum())}/{n_datasets}  "
-                  f"min gamma: {float(ng.min()):.6f}", flush=True)
-        if callback is not None:
-            callback(graphs.clone(s))
-    return graphs.clone(s)
+    with span("smc.run", run=True):
+        dev = data.device if states is None else states.particles.device
+        pcs, s, data = programs.on(dev, states, data)
+        if s is None:
+            with span("smc.piece.init"):
+                s, running = pcs.init(as_draws(key, dev), data)
+        else:
+            running = _running(s, cfg)
+            if psh is not None:
+                running = psh.world.any(running)
+        while graphs.read(running, "step"):
+            if _stop_requested(stop_file, psh, dev):
+                print(f"run_ensemble_sweeps: stop file {stop_file} "
+                      f"present — returning at max step "
+                      f"{int(s.step.max())}", flush=True)
+                break
+            try:
+                s, running = run_step(pcs, s, data, stop_file, psh)
+            except StopRequested:
+                print(f"run_ensemble_sweeps: stop file {stop_file} present "
+                      f"mid-step — returning last completed step "
+                      f"{int(s.step.max())}", flush=True)
+                break
+            if verbose:
+                ng = s.gamma.cpu()
+                print(f"ensemble step: {int(s.step.max())}  "
+                      f"gamma<1: {int((ng < 1.0).sum())}/{n_datasets}  "
+                      f"min gamma: {float(ng.min()):.6f}", flush=True)
+            if callback is not None:
+                callback(graphs.clone(s))
+        return graphs.clone(s)
 
 
 def run_ensemble_sweeps(key, prior: Prior, loglik_fn: DataLogLik, data,

@@ -50,7 +50,19 @@ records them per graph; every replay adds them again, so
 One module owns warm-up, capture and replay (:func:`warm_up`,
 :func:`capture`, :func:`replay`): the step graphs here and
 :func:`repeat`, which replays one captured update ``n`` times (MAP's Adam
-step), all count their captures and replays in :data:`stats`.
+step), all count their captures and replays in :data:`stats`. Per
+captured shape, ``stats["shapes"]`` keeps each piece's warm-up and
+capture seconds and the bytes the shape's graph pool holds once its
+graphs are captured, as the caching allocator accounts the pool's
+segments.
+
+Host spans (``utils/metrics.py``, recorded only while a profiler session
+records): ``smc.launch`` around each ``CUDAGraph.replay()``;
+``smc.read.step`` or ``smc.read.sweep`` around each flag read, named by
+the loop that reads; ``smc.warm_up`` and ``smc.capture.<piece>`` at
+set-up. The callers open ``smc.piece.<piece>`` around each piece call, so
+a piece's own time beside its launch is the generator-state copies and
+bookkeeping of :meth:`StepGraphs._replay`.
 
 On the CPU there are no graphs: the same pieces run eagerly (the tests'
 path).
@@ -71,22 +83,37 @@ import torch
 
 from smc_tpu_torch.ops import _build
 from smc_tpu_torch.rng import TorchDraws
+from smc_tpu_torch.utils.metrics import span
 
-# Since the last reset: host reads of a device flag, graph replays,
-# captures (a graph each) and the seconds they took with their warm-up.
-stats = {"host_reads": 0, "replays": 0, "captures": 0,
-         "capture_seconds": 0.0}
+# Since the last reset: host reads of a device flag; graph replays, in all
+# and by piece; captures (a graph each) and the seconds they took with
+# their warm-up; per captured shape, in capture order, ``{"pieces": {piece:
+# [warm-up s, capture s]}, "pool_bytes": n}``.
+stats = {"host_reads": 0, "replays": 0, "piece_replays": {}, "captures": 0,
+         "capture_seconds": 0.0, "shapes": []}
+
+_READS = {"step": "smc.read.step", "sweep": "smc.read.sweep"}
 
 
 def reset_stats() -> None:
-    for k in stats:
-        stats[k] = type(stats[k])(0)
+    for k, v in stats.items():
+        stats[k] = type(v)()
 
 
-def read(flag: torch.Tensor) -> bool:
-    """Wait for the device and read one bool flag (counted)."""
+def read(flag: torch.Tensor, loop: str = "step") -> bool:
+    """Wait for the device and read one bool flag (counted); ``loop`` says
+    which loop reads it, "step" or "sweep" (the span's name)."""
     stats["host_reads"] += 1
-    return bool(flag.item())
+    with span(_READS[loop]):
+        return bool(flag.item())
+
+
+def _pool_bytes(pool) -> int:
+    """The bytes of the segments the caching allocator holds for the
+    graph memory pool ``pool``."""
+    pool = tuple(pool)
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == pool)
 
 
 class Pieces(NamedTuple):
@@ -184,10 +211,16 @@ def capture(fn: Callable, pool=None, generator=None):
     return graph, launches, out
 
 
-def replay(graph: torch.cuda.CUDAGraph, launches: dict) -> None:
-    graph.replay()
+def replay(graph: torch.cuda.CUDAGraph, launches: dict,
+           piece: str = "graph") -> None:
+    """Replay ``graph``, adding its ``launches`` to the counts and the
+    replay to ``piece``'s."""
+    with span("smc.launch"):
+        graph.replay()
     _build.count_replay(launches)
     stats["replays"] += 1
+    by_piece = stats["piece_replays"]
+    by_piece[piece] = by_piece.get(piece, 0) + 1
 
 
 def repeat(step: Callable, state: tuple, n: int) -> tuple:
@@ -203,12 +236,24 @@ def repeat(step: Callable, state: tuple, n: int) -> tuple:
         return state
     t0 = time.perf_counter()
     buf = clone(state)
-    warm_up(lambda: step(clone(buf)), device)
-    graph, launches, _ = capture(lambda: _copy_into(buf, step(buf)))
-    stats["capture_seconds"] += time.perf_counter() - t0
+    with span("smc.warm_up"):
+        warm_up(lambda: step(clone(buf)), device)
+    t1 = time.perf_counter()
+    with span("smc.capture.repeat"):
+        graph, launches, _ = capture(lambda: _copy_into(buf, step(buf)))
+    t2 = time.perf_counter()
+    stats["capture_seconds"] += t2 - t0
+    stats["shapes"].append({"pieces": {"repeat": [t1 - t0, t2 - t1]},
+                            "pool_bytes": _pool_bytes(graph.pool())})
     for _ in range(n):
-        replay(graph, launches)
+        replay(graph, launches, "repeat")
     return buf
+
+
+def _piece(name) -> str:
+    """A graph's piece: its name, or the first part of a slab's
+    ``(piece, row)``."""
+    return name if isinstance(name, str) else name[0]
 
 
 def _generator(key) -> torch.Generator:
@@ -232,10 +277,10 @@ class StepGraphs:
         self.comm = comm
         self.draws = TorchDraws(0, device)        # the private generator
         self.pool = torch.cuda.graph_pool_handle()
-        self.graphs = {}                          # name -> (graph, launches)
+        self.graphs = {}                # name -> (graph, launches, piece)
         self.S = self.D = self.P = self.C = None
         self.more = self.running = self.init_running = None
-        self.replays = 0
+        self.times = {}                # piece -> [warm-up s, capture s]
 
     # -- capture ------------------------------------------------------------
     def _capture(self, state, data) -> None:
@@ -249,20 +294,36 @@ class StepGraphs:
         if self.comm is not None:
             self.comm.warm_up(self.device)   # start the communicators
         self.D = clone(data)
-        warm_up(lambda: self._warm_up(state), self.device)
+        with span("smc.warm_up"):
+            warm_up(lambda: self._warm_up(state), self.device)
         self._record_pieces()
         torch.cuda.synchronize(self.device)
         stats["capture_seconds"] += time.perf_counter() - t0
+        stats["shapes"].append({"pieces": self.times,
+                                "pool_bytes": _pool_bytes(self.pool)})
+
+    def _timed(self, piece: str, which: int, fn):
+        """``fn()``, its seconds (to the device's end) added to the piece's
+        warm-up (``which`` 0) or capture (1) seconds."""
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize(self.device)
+        self.times.setdefault(piece, [0.0, 0.0])[which] += \
+            time.perf_counter() - t0
+        return out
+
+    def _warm(self, piece: str, fn, *args):
+        return self._timed(piece, 0, lambda: fn(*args))
 
     def _warm_up(self, state) -> None:
-        pcs, D = self.pieces, self.D
+        pcs, D, w = self.pieces, self.D, self._warm
         if pcs.init is not None:
-            state = pcs.init(self.draws, D)[0]
+            state = w("init", pcs.init, self.draws, D)[0]
         self.S = clone(state).replace(key=self.draws)
-        p = pcs.prep(self.S, D)
-        c, _ = pcs.mut_init(self.S, p, D)
-        c, _ = pcs.mut_sweep(self.S, p, c, D)
-        pcs.finish(self.S, p, c, D)
+        p = w("prep", pcs.prep, self.S, D)
+        c, _ = w("mut_init", pcs.mut_init, self.S, p, D)
+        c, _ = w("mut_sweep", pcs.mut_sweep, self.S, p, c, D)
+        w("finish", pcs.finish, self.S, p, c, D)
 
     def _record_pieces(self) -> None:
         pcs, S, D = self.pieces, self.S, self.D
@@ -292,18 +353,21 @@ class StepGraphs:
             return running
         self.running = self._record("finish", finish)
 
-    def _record(self, name: str, fn):
-        graph, launches, out = capture(fn, self.pool, self.draws.generator)
-        self.graphs[name] = (graph, launches)
+    def _record(self, name, fn):
+        piece = _piece(name)
+        with span("smc.capture." + piece):
+            graph, launches, out = self._timed(
+                piece, 1, lambda: capture(fn, self.pool,
+                                          self.draws.generator))
+        self.graphs[name] = (graph, launches, piece)
         return out
 
-    def _replay(self, name: str, key) -> None:
+    def _replay(self, name, key) -> None:
         gen = _generator(key)
         own = self.draws.generator
         own.set_state(gen.get_state())
         replay(*self.graphs[name])
         gen.set_state(own.get_state())
-        self.replays += 1
 
     # -- the pieces -------------------------------------------------------
     def bind(self, state, data):
@@ -352,16 +416,18 @@ class BlockGraphs(StepGraphs):
     ``admin`` reads. No graph copies from the host or reads the device."""
 
     def _warm_up(self, state) -> None:
-        pcs, D = self.pieces, self.D
+        pcs, D, w = self.pieces, self.D, self._warm
         self.S = clone(state).replace(key=self.draws)
-        p = pcs.prep(self.S, D)
+        p = w("prep", pcs.prep, self.S, D)
         grads = (None if pcs.grad is None
-                 else [pcs.grad(self.S, p, lo) for lo in pcs.starts])
-        c = pcs.mut_init(self.S, p, grads)
-        a = pcs.draw(self.S, c)
-        outs = [pcs.core(self.S, p, c, a, lo) for lo in pcs.starts]
-        c, _ = pcs.admin(self.S, p, c, a, outs)
-        pcs.finish(self.S, p, c, D)
+                 else [w("grad", pcs.grad, self.S, p, lo)
+                       for lo in pcs.starts])
+        c = w("mut_init", pcs.mut_init, self.S, p, grads)
+        a = w("draw", pcs.draw, self.S, c)
+        outs = [w("core", pcs.core, self.S, p, c, a, lo)
+                for lo in pcs.starts]
+        c, _ = w("admin", pcs.admin, self.S, p, c, a, outs)
+        w("finish", pcs.finish, self.S, p, c, D)
 
     def _record_pieces(self) -> None:
         pcs, S, D = self.pieces, self.S, self.D

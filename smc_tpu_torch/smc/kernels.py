@@ -783,7 +783,7 @@ def sweep_until_done(c, more, mut_sweep, poll=None):
     wrote says another sweep is due, ``poll()`` (when given; it may raise)
     and ``c, more = mut_sweep(c)``. One host read per sweep after the
     first."""
-    while graphs.read(more):
+    while graphs.read(more, "sweep"):
         if poll is not None:
             poll()
         c, more = mut_sweep(c)

@@ -12,8 +12,9 @@ captured graph, each resampling scheme's counts and run, an ensemble on
 the card against the same ensemble on the CPU, and the graphed runs
 (captured CUDA graphs of the step's pieces; for MALA and HMC with their
 backward passes) against the eager composition of the same pieces, bit for
-bit, with their launch accounting; block granularity against sweep
-granularity; the autograd gradients and a MAP estimate on the card
+bit, with their launch accounting and the program's host spans under a
+CUDA profiler session (host-only, the graphs unchanged, the capture and
+pool counters); block granularity against sweep granularity; the autograd gradients and a MAP estimate on the card
 against the CPU's; a checkpoint taken inside a graphed run resumed
 bit-equal in each format, the Robertson ``bdf2`` march graphed against
 eager, MM ``dopri5`` to gamma = 1, the blocked methanation engine at
@@ -868,11 +869,13 @@ def test_launch_accounting_under_replay(cuda):
     """launch_counts counts kernel executions: a graphed run counts what the
     eager run launches, the capture and its warm-up count nothing, and
     every replay of a piece adds the launches recorded at its capture."""
+    from smc_tpu_torch.smc import graphs
     from smc_tpu_torch.smc.driver import _Stepper
     m = MichaelisMentenModel.default(method="pallas_exact", device=cuda)
     cfg = SMCConfig(n_particles=4096)
     stepper = _Stepper(m, cfg, init=True)
     _build.reset_launch_counts()
+    graphs.reset_stats()
     s = stepper.run(None, 5)
     counts = dict(_build.launch_counts)
     prog = next(iter(stepper.programs.by_shape.values()))
@@ -885,10 +888,66 @@ def test_launch_accounting_under_replay(cuda):
     assert prog.graphs["mut_sweep"][1]["mm_exact"] == 1
     # init + per step: prep, mut_init, finish, and one mut_sweep per later
     # sweep
-    assert prog.replays == 1 + 3 * steps + (sweeps - steps)
+    assert graphs.stats["piece_replays"] == {
+        "init": 1, "prep": steps, "mut_init": steps, "finish": steps,
+        "mut_sweep": sweeps - steps}
+    assert graphs.stats["replays"] == 1 + 3 * steps + (sweeps - steps)
     _build.reset_launch_counts()
     stepper.run(None, 5)
     assert dict(_build.launch_counts) == counts
+
+
+def test_program_spans_under_a_cuda_profiler_session(cuda):
+    """A graphed MM run captured and run inside a CPU-and-CUDA profiler
+    session: no device event bears a program span's name (the spans are
+    host-only ranges), one ``smc.launch`` span per replay, every graph's
+    recorded launches and the final state those of the same run captured
+    and run without a session; the capture and pool counters are
+    positive, and the pool's bytes at most the process's peak of reserved
+    memory (the pool's segments hold the free fragments between the
+    graphs' buffers too, so they can pass the peak of allocated bytes:
+    the methanation graphs' pools do, on the card)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from smc_tpu_torch.smc import graphs
+    from smc_tpu_torch.smc.driver import _Stepper
+    from smc_tpu_torch.utils import metrics
+    m = MichaelisMentenModel.default(method="pallas_exact", device=cuda)
+    cfg = SMCConfig(n_particles=4096)
+    plain = _Stepper(m, cfg, init=True)
+    graphs.reset_stats()
+    want = plain.run(None, 5)
+    (shape,) = graphs.stats["shapes"]
+    traced = _Stepper(m, cfg, init=True)
+    metrics.clear_spans()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        got = traced.run(None, 5)
+        torch.cuda.synchronize()
+    rec = list(metrics.spans)
+    names = {x.name for x in rec}
+    assert {"smc.run", "smc.launch", "smc.read.step", "smc.read.sweep",
+            "smc.warm_up", "smc.piece.init", "smc.piece.prep",
+            "smc.capture.mut_sweep"} <= names
+    device = {e.name for e in prof.events()
+              if e.device_type == DeviceType.CUDA}
+    assert device and not device & names
+    assert sum(x.name == "smc.launch" for x in rec) == \
+        graphs.stats["replays"] // 2
+    for f in _STATE_FIELDS:
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    (p0,) = plain.programs.by_shape.values()
+    (p1,) = traced.programs.by_shape.values()
+    assert {k: v[1] for k, v in p0.graphs.items()} == \
+        {k: v[1] for k, v in p1.graphs.items()}
+    shapes = graphs.stats["shapes"]
+    assert len(shapes) == 2 and shapes[0] is shape
+    for sh in shapes:
+        assert set(sh["pieces"]) == set(p0.graphs)
+        assert all(w > 0 and c > 0 for w, c in sh["pieces"].values())
+        assert 0 < sh["pool_bytes"] <= torch.cuda.max_memory_reserved()
+    assert graphs.stats["capture_seconds"] >= sum(
+        w + c for sh in shapes for w, c in sh["pieces"].values())
 
 
 @pytest.mark.parametrize("d", [1, 3, 64])
