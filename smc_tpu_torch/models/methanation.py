@@ -28,7 +28,10 @@ march with the lagged Jacobian, or the steady march (``march="steady"``,
 per-lane pseudo-transient continuation) whose gradient is the
 implicit-function adjoint (``_make_steady_solve``); Jacobian blocks in
 closed form (``jac_mode="full"``), in part (``"cd"``) or wholly (``"ad"``)
-by tangent passes; the block-Thomas kernels of ``ops/thomas_cuda.py``
+by tangent passes; on "full" with 7-column blocks, the march's residuals
+and Newton systems by the one-pass kernels of ``ops/march_cuda.py``
+wherever the march is float32 and untracked (``_fused_of``); the
+block-Thomas kernels of ``ops/thomas_cuda.py``
 (differentiable: the transposed-solve kernel is their backward) or the
 plain "thomas", "cr" and "babe" solvers. The per-system engine
 (``engine="blocked"``, ``ops/dae.py``: local Jacobians by
@@ -51,6 +54,7 @@ from smc_tpu_torch.ops.dae import geometric_schedule, implicit_euler_dae
 from smc_tpu_torch.ops.dae_fast import (_newton_kit, bdf_march_bl,
                                         block_thomas_bl, resolve_solver,
                                         steady_march_bl)
+from smc_tpu_torch.ops.march_cuda import MarchKernels
 from smc_tpu_torch.priors import Prior
 from smc_tpu_torch.smc.diagnostics import FAILURE_SENTINEL
 
@@ -539,6 +543,16 @@ def _jac_of(jac_mode: str, flags, condv, kin, pad_cols: int = 0):
     return None
 
 
+def _fused_of(jac_mode: str, flags, condv, kin, pad_cols: int = 0):
+    """The one-pass residual and Newton system of the march
+    (``ops/march_cuda.py``) for the closed-form Jacobian on 7-column
+    blocks; None otherwise (the tangent passes need the rows as PyTorch
+    operations, and the kernels write no pad column)."""
+    if jac_mode != "full" or pad_cols:
+        return None
+    return MarchKernels(flags, condv, kin)
+
+
 def _analytic_full_jac(flags, condv, kin, pad_cols: int = 0):
     """Closed-form Jacobian blocks of ``_rows_bl`` for ALL four argument
     slots (0 = y_m, 1 = y, 2 = y_p, 3 = yd), each (7, 7 + pad_cols, NX, B).
@@ -689,7 +703,8 @@ class _SteadySolve(torch.autograd.Function):
         def rows(y_m, y, y_p, yd):
             return _rows_bl(y_m, y, y_p, yd, flags, condv, kin_bl)
         yf = steady_march_bl(rows, y0, analytic_jac=_jac_of(
-            jac_mode, flags, condv, kin_bl, pad), **march_kw)
+            jac_mode, flags, condv, kin_bl, pad), fused=_fused_of(
+                jac_mode, flags, condv, kin_bl, pad), **march_kw)
         ctx.save_for_backward(kin_bl, condv, flags, yf)
         ctx.h_max = march_kw.get("h_max", 1e6)
         return yf
@@ -976,17 +991,20 @@ class MethanationModel:
         return kin_bl, condv, flags, y0
 
     def _lane_problem(self, kin_b: torch.Tensor, pad_cols: int = 0):
-        """kin_b (Nc, 8) -> (rows, jac, y0): the residual and Jacobian
-        callbacks the marches take (``jac`` by ``jac_mode``; None for
-        "ad") and the initial guess (7, NX, B). ``pad_cols=1`` makes
-        ``jac`` emit 8-column blocks, the reference's padded layout."""
+        """kin_b (Nc, 8) -> (rows, jac, y0, fused): the residual and
+        Jacobian callbacks the marches take (``jac`` by ``jac_mode``; None
+        for "ad"), the initial guess (7, NX, B) and the one-pass kernels
+        of both (``_fused_of``; None but for "full" on 7 columns).
+        ``pad_cols=1`` makes ``jac`` emit 8-column blocks, the reference's
+        padded layout."""
         kin_bl, condv, flags, y0 = self._lane_tensors(kin_b)
 
         def rows(y_m, y, y_p, yd):
             return _rows_bl(y_m, y, y_p, yd, flags, condv, kin_bl)
 
-        return rows, _jac_of(self.jac_mode, flags, condv, kin_bl,
-                             pad_cols), y0
+        mode = self.jac_mode
+        return (rows, _jac_of(mode, flags, condv, kin_bl, pad_cols), y0,
+                _fused_of(mode, flags, condv, kin_bl, pad_cols))
 
     def _steady_kwargs(self, pad_cols: int = 0) -> dict:
         """The steady solve's settings, as the JAX package passes them."""
@@ -1009,7 +1027,7 @@ class MethanationModel:
             solve = _make_steady_solve(self._steady_kwargs(pad_cols))
             yf = solve(*self._lane_tensors(kin_b))
         else:
-            rows, jac, y0 = self._lane_problem(kin_b, pad_cols)
+            rows, jac, y0, fused = self._lane_problem(kin_b, pad_cols)
             yf = bdf_march_bl(rows, y0, self._dts(),
                               newton_iters=self.newton_iters,
                               pivot=self.pivot,
@@ -1018,7 +1036,7 @@ class MethanationModel:
                               n_dense=self._n_dense_eff,
                               reuse_iters=self.reuse_iters,
                               dense_tail=self.dense_tail,
-                              solver=self.solver)
+                              solver=self.solver, fused=fused)
         flows = (yf[:5, -1, :] * yf[6, -1, :] * AREA * 60.0 * R_GAS * 298.0
                  / P_STP * 1e6)                            # (5, B)
         flows = flows.reshape(5, n, nc)

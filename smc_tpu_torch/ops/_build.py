@@ -29,11 +29,15 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("mm_exact.cu", "mm_rk4.cu", "ladder.cu", "merge.cu",
-           "thomas_factor.cu", "thomas_apply.cu", "thomas_apply_t.cu")
+           "thomas_factor.cu", "thomas_apply.cu", "thomas_apply_t.cu",
+           "march.cu")
 HEADERS = ("ring.cuh", "div_rn.cuh")  # included by sources; in the hash
 # IEEE expf/logf/division throughout: no --use_fast_math.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# Flags of single sources: march.cu rounds every product on its own, as
+# the PyTorch operations it must equal bit for bit.
+SOURCE_FLAGS = {"march.cu": ("-fmad=false",)}
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -58,6 +62,13 @@ _SIGNATURES = {
     "thomas_apply_tiled_launch": (_P, _P, _P, _P, _P, _I, _I, _P),
     # LU, Ms, C, g, lam, nx, nb, cs, stream (the transposed solve)
     "thomas_apply_t_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    # y, c, flags, condv, kin, h per lane (or null), rhs, nx, nb, flag
+    # stride, grid stride, alpha, 1/h, alpha/h, stream
+    "march_rows_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F,
+                          _F, _F, _P),
+    # the same with A, B, C before rhs
+    "march_blocks_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                            _I, _I, _F, _F, _F, _P),
     # cs, nx, int[5] out: registers, shared bytes per block, blocks per
     # SM, spilled bytes, lanes per block (no launch)
     "thomas_factor_info": (_I, _I, _P),
@@ -72,7 +83,8 @@ _SIGNATURES = {
 # graph, ``count_replay`` adds them for each replay (smc/graphs.py).
 launch_counts = {"mm_exact": 0, "mm_rk4": 0, "ladder": 0, "merge": 0,
                  "thomas_factor": 0, "thomas_apply": 0,
-                 "thomas_apply_tiled": 0, "thomas_apply_t": 0}
+                 "thomas_apply_tiled": 0, "thomas_apply_t": 0,
+                 "march_rows": 0, "march_blocks": 0}
 
 # Collectives of a sharded run since the last reset (parallel/mesh.py):
 # per kind the calls and, under "<kind>_bytes", the bytes each rank put
@@ -139,6 +151,7 @@ def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name in SOURCES + HEADERS:
         h.update(name.encode())
+        h.update(" ".join(SOURCE_FLAGS.get(name, ())).encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
 
@@ -163,7 +176,8 @@ def build() -> Path:
         obj = BUILD_DIR / f"{tag}.{name}.o"
         objs.append(obj)
         procs.append(subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-c", str(CSRC / name), "-o", str(obj)],
+            [nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(name, ()), "-c",
+             str(CSRC / name), "-o", str(obj)],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     reports = []
     for name, p in zip(SOURCES, procs):

@@ -23,9 +23,15 @@ Pieces:
 - ``block_thomas_bl``: the pivoted fused solve of the conservative
   full-Newton path and of the steady adjoint (plain PyTorch; the reference
   has no kernel for it).
+- ``newton_residual`` / ``newton_blocks``: -F and the edge-folded Newton
+  system at a state, by PyTorch operations over a model's rows and
+  Jacobian callbacks (the plain versions of the methanation model's march
+  kernels, ``ops/march_cuda.py``).
 - ``bdf_march_bl``: BDF1/BDF2 march with per-step Newton and the IDA-style
   lagged Jacobian; ``steady_march_bl``: the steady state by per-lane
-  switched-evolution-relaxation pseudo-transient continuation.
+  switched-evolution-relaxation pseudo-transient continuation. Both take
+  a model's one-pass kernels of the residual and the Newton system
+  (``fused``) where their inputs allow it.
 
 The small block algebra is written on slices of (7, 7, B) tensors. Per
 entry the operations and their order are the reference's statically
@@ -583,8 +589,66 @@ def _tangent_blocks(rows_bl, args, slots, ncol):
     return out
 
 
+def _shift(y):
+    """The neighbour-shifted states (y_m, y_p) of y (7, NX, B), the edge
+    rows duplicated."""
+    y_m = torch.cat([y[:, :1], y[:, :-1]], dim=1)
+    y_p = torch.cat([y[:, 1:], y[:, -1:]], dim=1)
+    return y_m, y_p
+
+
+def _neg_rows(F):
+    """-F as the sweeps' right-hand side (NX, 7, B), contiguous: one pass
+    (out= has no autograd, so a tracked F takes two)."""
+    if _tracks(F):
+        return (-F).movedim(1, 0).contiguous()
+    rhs = F.new_empty((F.shape[1], F.shape[0], F.shape[2]))
+    return torch.neg(F.movedim(1, 0), out=rhs)
+
+
+def newton_residual(rows_bl: Callable, y, alpha, const, h):
+    """-F(y, yd) in the sweeps' layout (NX, 7, B), with the BDF mass term
+    yd = (alpha*y + const)/h: the neighbour shift, yd and the rows, as
+    PyTorch operations."""
+    y_m, y_p = _shift(y)
+    yd = (alpha * y + const) / h
+    return _neg_rows(rows_bl(y_m, y, y_p, yd))
+
+
+def newton_blocks(rows_bl: Callable, analytic_jac: Optional[Callable], y,
+                  alpha, const, h):
+    """The Newton system at y: the blocks A, B + D*alpha/h, C in the
+    sweeps' layout (NX, 7, ncol, B), the duplicated edge slots folded
+    (B[0] += A[0], B[-1] += C[-1], A[0] = C[-1] = 0), and -F (NX, 7, B).
+    ``analytic_jac`` supplies any of the four slots in closed form; the
+    others are built by tangent passes (:func:`_tangent_blocks`)."""
+    nf = y.shape[0]
+    y_m, y_p = _shift(y)
+    yd = (alpha * y + const) / h
+    blocks = dict(analytic_jac(y_m, y, y_p, yd)) if analytic_jac else {}
+    need = [s for s in range(4) if s not in blocks]
+    if need:
+        ncol = next(iter(blocks.values())).shape[1] if blocks else nf
+        blocks.update(_tangent_blocks(rows_bl, (y_m, y, y_p, yd), need,
+                                      ncol))
+    F = rows_bl(y_m, y, y_p, yd)
+    A_, B_, C_, D_ = blocks[0], blocks[1], blocks[2], blocks[3]
+    B_ = B_ + D_ * (alpha / h)
+    # (7,ncol,NX,B) -> (NX,7,ncol,B), the layout of the sweeps; no copy
+    # when the callback assembled its blocks grid-major.
+    A_, B_, C_ = (M.movedim(2, 0).contiguous() for M in (A_, B_, C_))
+    # Fold the duplicated edge slots, in place: the blocks are this
+    # call's own (the callback returns fresh tensors).
+    B_[0] += A_[0]
+    B_[-1] += C_[-1]
+    A_[0] = 0.0
+    C_[-1] = 0.0
+    return A_, B_, C_, _neg_rows(F)
+
+
 def _newton_kit(rows_bl: Callable, y0: torch.Tensor, pivot: bool,
-                analytic_jac: Optional[Callable], solver: str):
+                analytic_jac: Optional[Callable], solver: str,
+                fused=None):
     """Shared closures for the implicit solvers: residual evaluation,
     Jacobian block assembly, and the solver-dispatched block-tridiagonal
     factor/apply pair. The BDF mass term is parameterized as
@@ -598,6 +662,14 @@ def _newton_kit(rows_bl: Callable, y0: torch.Tensor, pivot: bool,
     the four slots; the others are built by tangent passes
     (:func:`_tangent_blocks`), so ``analytic_jac=None`` means all 28.
 
+    ``fused``, where the model has one, computes the residual and the
+    Newton system in one pass each (``ops/march_cuda.py::MarchKernels``:
+    ``takes(y, const, h)``, ``rows(y, alpha, const, h)``,
+    ``blocks(y, alpha, const, h)``, the same results as
+    :func:`newton_residual` and :func:`newton_blocks`). Each call takes it
+    when ``fused.takes`` says its inputs allow it, and otherwise the
+    PyTorch composition.
+
     The blocks keep the column width ``analytic_jac`` gives them. The
     reference pads 7 -> 8 columns for its Pallas kernels because their row
     DMAs must be sublane-aligned; that pad has no meaning on this card, so
@@ -607,46 +679,15 @@ def _newton_kit(rows_bl: Callable, y0: torch.Tensor, pivot: bool,
     analytic slots' width."""
     nf = y0.shape[0]
 
-    def shift(y):
-        y_m = torch.cat([y[:, :1], y[:, :-1]], dim=1)
-        y_p = torch.cat([y[:, 1:], y[:, -1:]], dim=1)
-        return y_m, y_p
-
-    def neg_rows(F):
-        # -F as the sweeps' right-hand side (NX, 7, B), contiguous: one pass
-        # (out= has no autograd, so a tracked F takes two).
-        if _tracks(F):
-            return (-F).movedim(1, 0).contiguous()
-        rhs = F.new_empty((F.shape[1], F.shape[0], F.shape[2]))
-        return torch.neg(F.movedim(1, 0), out=rhs)
-
     def residual(y, alpha, const, h):
-        y_m, y_p = shift(y)
-        yd = (alpha * y + const) / h
-        return neg_rows(rows_bl(y_m, y, y_p, yd))
+        if fused is not None and fused.takes(y, const, h):
+            return fused.rows(y, alpha, const, h)
+        return newton_residual(rows_bl, y, alpha, const, h)
 
     def build_blocks(y, alpha, const, h):
-        y_m, y_p = shift(y)
-        yd = (alpha * y + const) / h
-        blocks = dict(analytic_jac(y_m, y, y_p, yd)) if analytic_jac else {}
-        need = [s for s in range(4) if s not in blocks]
-        if need:
-            ncol = next(iter(blocks.values())).shape[1] if blocks else nf
-            blocks.update(_tangent_blocks(rows_bl, (y_m, y, y_p, yd), need,
-                                          ncol))
-        F = rows_bl(y_m, y, y_p, yd)
-        A_, B_, C_, D_ = blocks[0], blocks[1], blocks[2], blocks[3]
-        B_ = B_ + D_ * (alpha / h)
-        # (7,ncol,NX,B) -> (NX,7,ncol,B), the layout of the sweeps; no copy
-        # when the callback assembled its blocks grid-major.
-        A_, B_, C_ = (M.movedim(2, 0).contiguous() for M in (A_, B_, C_))
-        # Fold the duplicated edge slots, in place: the blocks are this
-        # call's own (the callback returns fresh tensors).
-        B_[0] += A_[0]
-        B_[-1] += C_[-1]
-        A_[0] = 0.0
-        C_[-1] = 0.0
-        return A_, B_, C_, neg_rows(F)
+        if fused is not None and fused.takes(y, const, h):
+            return fused.blocks(y, alpha, const, h)
+        return newton_blocks(rows_bl, analytic_jac, y, alpha, const, h)
 
     def factor_(A_, B_, C_):
         # "thomas": the plain loops; "thomas_pl": one CUDA kernel for the
@@ -686,7 +727,7 @@ def _newton_kit(rows_bl: Callable, y0: torch.Tensor, pivot: bool,
             delta = block_thomas_apply(*fac, rhs)
         return delta.movedim(0, 1)
 
-    return shift, residual, build_blocks, factor_, apply_
+    return _shift, residual, build_blocks, factor_, apply_
 
 
 def bdf_march_bl(rows_bl: Callable,
@@ -700,7 +741,8 @@ def bdf_march_bl(rows_bl: Callable,
                  n_dense: int = None,
                  reuse_iters: int = None,
                  dense_tail: int = 0,
-                 solver: str = "thomas") -> torch.Tensor:
+                 solver: str = "thomas",
+                 fused=None) -> torch.Tensor:
     """March F(y, y') = 0 in batch-last layout. y0: (7, NX, B).
 
     rows_bl(y_m, y, y_p, yd) -> (7, NX, B) residual rows, where y_m/y_p are
@@ -728,10 +770,13 @@ def bdf_march_bl(rows_bl: Callable,
     The residual is always evaluated with the step's true coefficients, so
     a converged step is exact regardless of factor staleness. The last
     ``dense_tail`` steps factor per step again.
+
+    ``fused``: the model's one-pass residual and Newton system, taken
+    where their inputs allow it (:func:`_newton_kit`).
     """
     solver = resolve_solver(solver)
     _, residual, build_blocks, factor_, apply_ = _newton_kit(
-        rows_bl, y0, pivot, analytic_jac, solver)
+        rows_bl, y0, pivot, analytic_jac, solver, fused)
     if isinstance(dts, torch.Tensor):
         if dts.device.type != "cpu":
             raise ValueError("dts must be a host array: reading a device "
@@ -849,7 +894,8 @@ def steady_march_bl(rows_bl: Callable,
                     pivot: bool = False,
                     analytic_jac: Callable = None,
                     solver: str = "thomas",
-                    conv_tol: float = 1e-4) -> torch.Tensor:
+                    conv_tol: float = 1e-4,
+                    fused=None) -> torch.Tensor:
     """Solve the steady state F(y, yd=0) = 0 directly. y0: (7, NX, B).
 
     Pseudo-transient continuation with per-lane switched-evolution
@@ -875,10 +921,12 @@ def steady_march_bl(rows_bl: Callable,
     initial residual norm, or non-finite) are set to NaN, so callers'
     -10000 sentinels fire. A lane whose step produces non-finite values
     keeps its previous iterate and retries at h/4.
+
+    ``fused``: as :func:`bdf_march_bl`'s.
     """
     solver = resolve_solver(solver)
     _, residual, build_blocks, factor_, apply_ = _newton_kit(
-        rows_bl, y0, pivot, analytic_jac, solver)
+        rows_bl, y0, pivot, analytic_jac, solver, fused)
 
     def lane_norm(rhs):                           # rhs (NX, 7, B)
         return torch.amax(torch.abs(rhs), dim=(0, 1))

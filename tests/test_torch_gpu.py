@@ -4,7 +4,10 @@ of the Michaelis-Menten main path through its three kernels, the
 block-Thomas kernels at lane counts around their 32-lane tiles and at the
 march's width (and their refusal of inputs autograd tracks), the
 transposed-solve kernel and the solve's backward through it, a methanation
-likelihood and its gradient through them, the RK4 likelihood
+likelihood and its gradient through them, the march kernels (the BDF2
+march's residual rows and Newton-system blocks) against their plain
+versions, in a failed lane, through a flagship likelihood and in RWM and
+MALA steps, the RK4 likelihood
 kernel with and without its population axis, the ladder and merge kernels
 under the ensemble's population axis (unaligned rows, K = 1 and 200, the
 merge's zero-count runs where it cuts its pieces) and replayed in one
@@ -359,8 +362,10 @@ def test_thomas_wrappers_refuse_tracked_inputs_on_the_card(cuda):
 
 def test_methanation_likelihood_launches_the_thomas_kernels(cuda):
     """A small methanation likelihood on the card: 13 factor and 61 apply
-    launches per chunk for the default march, flows equal to the plain
-    loops' (solver="thomas") within 0.05 sccm."""
+    launches per chunk for the default march, and 13 Newton systems and 48
+    residuals through the march kernels; flows equal to the plain loops'
+    (solver="thomas", which launches no block-Thomas kernel) within 0.05
+    sccm."""
     import dataclasses
 
     from smc_tpu_torch.models.methanation import KIN_TRUE, MethanationModel
@@ -376,10 +381,196 @@ def test_methanation_likelihood_launches_the_thomas_kernels(cuda):
     assert counts["thomas_factor"] == 2 * 13
     assert counts["thomas_apply_tiled"] == 2 * 61
     assert counts["thomas_apply"] == 0
+    assert (counts["march_blocks"], counts["march_rows"]) == (2 * 13, 2 * 48)
     _, want = dataclasses.replace(m, solver="thomas").log_likelihood(theta)
-    assert dict(_build.launch_counts) == counts
+    assert dict(_build.launch_counts) == _march_again(counts)
     assert torch.isfinite(ll).all() and (flows != -10000.0).all()
     torch.testing.assert_close(flows, want, rtol=0, atol=0.05)
+
+
+# ---- the march kernels (csrc/march.cu) -----------------------------------
+
+def _march_again(counts):
+    """``counts`` after the same march again through solver="thomas": the
+    march kernels' launches twice, no block-Thomas kernel launched."""
+    return {k: v * (2 if k in ("march_rows", "march_blocks") else 1)
+            for k, v in counts.items()}
+
+
+def _march_inputs(cuda, nx, b, seed):
+    """The march kernels' inputs at nx grid points and b lanes: the
+    synthetic table's conditions and kinetics 10% off the truth on the
+    lanes, a state off the initial guess (each field times 1 + 3% noise, T
+    up to 40 K higher), a BDF constant and a per-lane step; lane 2 on the
+    rate law's guard, P_H2 = 0.001 exactly, at grid point nx - 1 (the last
+    interior point where nx > 2)."""
+    from smc_tpu_torch.models import methanation as M
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    cond = M.make_condition_table(30, nx=nx, device=cuda)
+    lanes = torch.arange(b, device=cuda) % 30
+    condv = torch.stack([cond.T_jacket, cond.u_in, cond.void, cond.dz,
+                         cond.P0])[:, lanes].contiguous()
+    kin = (torch.tensor(M.KIN_TRUE, device=cuda)[:, None]
+           * (1 + 0.1 * torch.randn((8, b), generator=g, device=cuda)))
+    y0 = M.initial_guess(cond, nx).permute(2, 1, 0)[:, :, lanes]
+    y = y0 * (1 + 0.03 * torch.randn(y0.shape, generator=g, device=cuda))
+    y[5] += 40 * torch.rand(y0[5].shape, generator=g, device=cuda)
+    i = max(nx - 2, 0)
+    if b > 2:
+        rt6 = y[5, i, 2] * M.R_GAS * 1e-6
+        c = torch.tensor(0.001, device=cuda) / rt6
+        for _ in range(64):
+            p = c * rt6
+            if float(p) == float(torch.tensor(0.001, device=cuda)):
+                break
+            c = torch.nextafter(c, c * (2.0 if float(p) < 0.001 else 0.5))
+        y[0, i, 2] = c
+    const = -1.3 * y0 + 0.2 * y
+    h = 0.37 * (1 + 0.2 * torch.rand((b,), generator=g, device=cuda))
+    flags = M._grid_flags(nx, cuda).T[:, :, None]
+    return y.contiguous(), const.contiguous(), 1.4, h, flags, condv, \
+        kin.contiguous()
+
+
+@pytest.mark.parametrize("nx,b", [(51, 15360), (51, 1037), (11, 33), (2, 1),
+                                  (3, 65)])
+def test_march_kernels_match_plain(cuda, nx, b):
+    """march_rows and march_blocks against their plain versions on the
+    card, with a scalar step and a per-lane one: every output the plain
+    version's bits, the folded edge slots zero, one launch each; at lane
+    counts that are not a multiple of the 64-lane block, at 2 grid points
+    (inlet and outlet only) and 3, and at the rate law's P_H2 = 0.001
+    tie."""
+    from smc_tpu_torch.ops import march_cuda as mc
+    y, const, alpha, h_lane, flags, condv, kin = _march_inputs(cuda, nx, b,
+                                                               nx * b)
+    for h in (0.37, h_lane):
+        args = (y, const, alpha, h, flags, condv, kin)
+        _build.reset_launch_counts()
+        got = (mc.march_rows(*args),) + mc.march_blocks(*args)
+        assert (_build.launch_counts["march_rows"],
+                _build.launch_counts["march_blocks"]) == (1, 1)
+        want = (mc.march_rows_plain(*args),) + mc.march_blocks_plain(*args)
+        for g, w in zip(got, want):
+            assert g.shape == w.shape and g.is_contiguous()
+            assert bool(torch.isfinite(g).all())
+            assert torch.equal(g, w)
+        assert not got[1][0].any() and not got[3][-1].any()
+        assert torch.equal(got[4], got[0])
+
+
+def test_march_failed_lane_stays_in_its_lane(cuda):
+    """A lane whose state holds a NaN (lane 7, T) or an infinity (lane 150,
+    the inlet's C_H2) gives non-finite rows and blocks in that lane only,
+    and in each output the lanes the plain version gives (C does not read
+    C_H2, so lane 150's C stays finite)."""
+    from smc_tpu_torch.ops import march_cuda as mc
+    y, const, alpha, h, flags, condv, kin = _march_inputs(cuda, 51, 200, 4)
+    y[5, 20, 7] = float("nan")
+    y[0, 0, 150] = float("inf")
+    args = (y, const, alpha, h, flags, condv, kin)
+    for got, want in ((mc.march_rows(*args), mc.march_rows_plain(*args)),
+                      (mc.march_blocks(*args), mc.march_blocks_plain(*args))):
+        got, want = (t if isinstance(t, tuple) else (t,)
+                     for t in (got, want))
+        for g, w in zip(got, want):
+            bad = ~torch.isfinite(g).flatten(0, -2).all(dim=0)
+            assert set(bad.nonzero().flatten().tolist()) <= {7, 150}
+            assert torch.equal(bad, ~torch.isfinite(w).flatten(0, -2).all(
+                dim=0))
+        rhs_bad = ~torch.isfinite(got[-1]).flatten(0, -2).all(dim=0)
+        assert rhs_bad.nonzero().flatten().tolist() == [7, 150]
+
+
+def test_march_wrappers_launch_or_raise(cuda, monkeypatch):
+    """On CUDA tensors the march wrappers launch their kernels or raise:
+    float64, a wrong shape, an input on another device and a tracked input
+    are refused before anything launches, and when the build fails
+    nothing falls back to the plain version."""
+    from smc_tpu_torch.ops import march_cuda as mc
+    y, const, alpha, h, flags, condv, kin = _march_inputs(cuda, 11, 40, 5)
+    before = dict(_build.launch_counts)
+    for fn in (mc.march_rows, mc.march_blocks):
+        with pytest.raises(TypeError):
+            fn(y.double(), const.double(), alpha, h, flags, condv, kin)
+        with pytest.raises(ValueError):
+            fn(y, const[:, 1:], alpha, h, flags, condv, kin)
+        with pytest.raises(ValueError):
+            fn(y, const, alpha, h[1:], flags, condv, kin)
+        with pytest.raises(ValueError):
+            fn(y, const, alpha, h, flags, condv.cpu(), kin)
+        with pytest.raises(ValueError, match="no backward"):
+            fn(y.clone().requires_grad_(True), const, alpha, h, flags,
+               condv, kin)
+    assert dict(_build.launch_counts) == before
+
+    def plain_must_not_run(*a, **k):
+        raise AssertionError("plain version reached on a CUDA tensor")
+
+    def failed_build():
+        raise RuntimeError("nvcc failed")
+    monkeypatch.setattr(mc, "march_rows_plain", plain_must_not_run)
+    monkeypatch.setattr(mc, "march_blocks_plain", plain_must_not_run)
+    monkeypatch.setattr(_build, "load", failed_build)
+    for fn in (mc.march_rows, mc.march_blocks):
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            fn(y, const, alpha, h, flags, condv, kin)
+
+
+def test_march_through_the_kernels_matches_the_plain_composition(
+        cuda, monkeypatch):
+    """The flagship likelihood (nx = 51, 30 conditions, the 48-step lagged
+    march) through the march kernels against the same march through the
+    PyTorch composition on the card (the kernels' pair refused), every
+    apply of the march solving a march kernel's system or residual: the
+    same flows and log-likelihoods, bit for bit, at 64 posterior-bulk
+    draws (0.5% off the truth) and at 64 draws 2% off, where some lanes
+    fail and some are chaotic in float32."""
+    from smc_tpu_torch.models.methanation import MethanationModel
+    from smc_tpu_torch.ops import march_cuda as mc
+    m = MethanationModel.default(particle_chunk=64, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(18)
+    truth = torch.tensor([m.base_params[i] for i in m.est_idx], device=cuda)
+    for spread in (0.005, 0.02):
+        theta = truth * (1.0 + spread * torch.randn(
+            (64, len(m.est_idx)), generator=gen, device=cuda))
+        _build.reset_launch_counts()
+        ll, flows = m.log_likelihood(theta)
+        c = dict(_build.launch_counts)
+        assert c["march_rows"] + c["march_blocks"] == c["thomas_apply_tiled"]
+        assert c["march_blocks"] == c["thomas_factor"] == 13
+        with monkeypatch.context() as mp:
+            mp.setattr(mc.MarchKernels, "takes", lambda self, *a: False)
+            _build.reset_launch_counts()
+            ll_p, flows_p = m.log_likelihood(theta)
+            assert _build.launch_counts["march_rows"] == 0
+        assert torch.equal(flows, flows_p) and torch.equal(ll, ll_p)
+        if spread == 0.005:
+            assert not bool((flows == -10000.0).any())
+
+
+def test_march_kernel_launches_in_rwm_and_mala(cuda):
+    """The march kernels engage wherever a march is untracked: an RWM step
+    makes one march kernel launch per apply; a MALA step's marches run
+    under autograd and launch none (its init_state's eager likelihood
+    does)."""
+    from smc_tpu_torch import init_state, make_smc_step
+    from smc_tpu_torch.models.methanation import MethanationModel
+    m = MethanationModel.default(n_conditions=3, nx=11, n_steps=12,
+                                 growth=1.6, jac_stride=3, dense_tail=3,
+                                 particle_chunk=64, device=cuda)
+    for kind in ("rwm", "mala"):
+        cfg = SMCConfig(n_particles=64, mutation=kind, mh_steps=2)
+        _build.reset_launch_counts()
+        st = init_state(3, m, cfg)
+        c = dict(_build.launch_counts)
+        assert c["march_rows"] + c["march_blocks"] == c["thomas_apply_tiled"]
+        _build.reset_launch_counts()
+        make_smc_step(m, cfg)(st)
+        c = dict(_build.launch_counts)
+        assert c["thomas_apply_tiled"] > 0
+        fused = c["march_rows"] + c["march_blocks"]
+        assert fused == (c["thomas_apply_tiled"] if kind == "rwm" else 0)
 
 
 @pytest.mark.parametrize("nx,b", [(51, 15360), (51, 1037), (1, 5), (2, 33),
@@ -1151,8 +1342,10 @@ def test_steady_march_through_the_kernels_matches_the_plain_loops(cuda):
     """The steady march at the flagship's full width (nx = 51, 30
     conditions) through the block-Thomas kernels against solver="thomas"
     (the plain loops) on the card: 14 factor and 42 tiled-apply launches
-    per chunk, the same failed lanes, flows within 0.05 sccm, at N = 64
-    posterior-bulk thetas."""
+    per chunk (and 14 Newton systems and 30 residuals through the march
+    kernels: one before each apply but the build's, one at each end), the
+    same failed lanes, flows within 0.05 sccm, at N = 64 posterior-bulk
+    thetas."""
     import dataclasses
 
     from smc_tpu_torch.models.methanation import MethanationModel
@@ -1168,8 +1361,9 @@ def test_steady_march_through_the_kernels_matches_the_plain_loops(cuda):
     assert counts["thomas_factor"] == 14
     assert counts["thomas_apply_tiled"] == 42
     assert counts["thomas_apply"] == 0
+    assert (counts["march_blocks"], counts["march_rows"]) == (14, 30)
     _, want = dataclasses.replace(m, solver="thomas").log_likelihood(theta)
-    assert dict(_build.launch_counts) == counts
+    assert dict(_build.launch_counts) == _march_again(counts)
     assert bool(torch.isfinite(ll).all())
     assert torch.equal(flows == -10000.0, want == -10000.0)
     ok = want != -10000.0

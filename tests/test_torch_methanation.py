@@ -18,6 +18,7 @@ import torch
 from smc_tpu.models import methanation as JM
 from smc_tpu_torch.models import methanation as TM
 from smc_tpu_torch.ops.dae import geometric_schedule
+from smc_tpu_torch.ops.dae_fast import bdf_march_bl
 from smc_tpu_torch.smc.diagnostics import failed_solve_count
 from tests.torch_parity import (jax_loglik_and_final_state, methanation_pair,
                                 torch_march_final_state)
@@ -294,3 +295,176 @@ def test_likelihood_call_path_copies_nothing_to_the_device():
         bdf_march_bl(None, torch.zeros((7, 3, 2)),
                      torch.ones(4, device="meta"),
                      analytic_jac=lambda *a: {})
+
+
+def _march_state(b=6, seed=3):
+    """A march state (7, NX, b) off the initial guess over every grid row
+    (inlet, first interior, interior, outlet), its BDF constant and step,
+    and the lane tensors (flags, condv, kin); lane 2 sits on the rate
+    law's guard, P_H2 = 0.001 exactly, at grid point 4."""
+    cond = TM.Conditions.from_numpy(TM.condition_table_numpy(NC, nx=NX),
+                                    "cpu")
+    tm = TM.MethanationModel(cond=cond, obs=torch.zeros((5, NC)),
+                             prior=TM.methanation_prior(device="cpu"), nx=NX)
+    rng = np.random.default_rng(seed)
+    kin_b = torch.from_numpy((np.asarray(TM.KIN_TRUE, np.float32)
+                              * (1 + 0.1 * rng.normal(size=(b // NC, 8)))
+                              ).astype(np.float32))
+    kin, condv, flags, y0 = tm._lane_tensors(kin_b)
+    y = y0 * torch.from_numpy(
+        (1 + 0.05 * rng.normal(size=y0.shape)).astype(np.float32))
+    y[5] += torch.from_numpy(
+        (40 * rng.random(size=y0[5].shape)).astype(np.float32))
+    # P_H2 = C_H2 * (R T 1e-6) = 0.001 in float32: C_H2 nudged by ulps.
+    rt6 = y[5, 4, 2] * TM.R_GAS * 1e-6
+    c = torch.tensor(0.001, dtype=torch.float32) / rt6
+    for _ in range(64):
+        p = c * rt6
+        if p == torch.tensor(0.001, dtype=torch.float32):
+            break
+        c = torch.nextafter(c, c * (2.0 if p < 0.001 else 0.5))
+    y[0, 4, 2] = c
+    assert y[0, 4, 2] * (y[5, 4, 2] * TM.R_GAS * 1e-6) == torch.tensor(
+        0.001, dtype=torch.float32)
+    const = -1.3 * y0 + 0.2 * y
+    return y.contiguous(), const, 1.4, 0.37, flags, condv, kin
+
+
+def test_march_plain_versions_equal_the_newton_composition():
+    """The march kernels' plain versions (ops/march_cuda.py) are the
+    march's PyTorch composition (``_newton_kit``'s residual and
+    build_blocks over ``_rows_bl`` and ``_analytic_full_jac``), bit for
+    bit, at every grid row and at the rate law's P_H2 = 0.001 tie, with a
+    scalar step and a per-lane one; the tie lane's H2 partial is the
+    branch above the guard (d r / d C_H2 = rf / (2 P_H2) * R T 1e-6)."""
+    from smc_tpu_torch.ops import march_cuda as mc
+    from smc_tpu_torch.ops.dae_fast import _newton_kit
+    y, const, alpha, h, flags, condv, kin = _march_state()
+    b = y.shape[-1]
+
+    def rows(y_m, y_, y_p, yd):
+        return TM._rows_bl(y_m, y_, y_p, yd, flags, condv, kin)
+    kit = _newton_kit(rows, y, False, TM._analytic_full_jac(
+        flags, condv, kin), "thomas")
+    for hh in (h, torch.linspace(0.2, 0.5, b)):
+        want = kit[1](y, alpha, const, hh)
+        got = mc.march_rows_plain(y, const, alpha, hh, flags, condv, kin)
+        assert got.shape == (NX, 7, b) and torch.equal(got, want)
+        want_b = kit[2](y, alpha, const, hh)
+        got_b = mc.march_blocks_plain(y, const, alpha, hh, flags, condv, kin)
+        for g, w in zip(got_b, want_b):
+            assert g.is_contiguous() and torch.equal(g, w)
+        A_, B_, C_, _ = got_b
+        assert not A_[0].any() and not C_[-1].any()
+    # The tie: B[4][1, 0] (CO2 row, H2 column) is -(1 - void) dr/dC_H2 with
+    # guard = 1, so it is not zero.
+    assert float(B_[4, 1, 0, 2]) != 0.0
+
+
+def test_march_kernels_dispatch_rule(monkeypatch):
+    """Which Newton calls take the march kernels' pair: float32 inputs
+    that autograd does not track, on the closed-form Jacobian's 7-column
+    blocks. A tracked theta, jac_mode "cd" and "ad", pad_cols=1 and
+    float64 inputs keep the PyTorch composition; each path's flows are
+    the same bits either way on the CPU (the plain versions are that
+    composition)."""
+    from smc_tpu_torch.ops import march_cuda as mc
+    _, tm = methanation_pair(NC, NX, **LAGGED)
+    calls = {"rows": 0, "blocks": 0}
+    plain = (mc.march_rows_plain, mc.march_blocks_plain)
+
+    def counted(name, fn):
+        def wrapped(*a):
+            calls[name] += 1
+            return fn(*a)
+        return wrapped
+    monkeypatch.setattr(mc, "march_rows_plain", counted("rows", plain[0]))
+    monkeypatch.setattr(mc, "march_blocks_plain", counted("blocks", plain[1]))
+    theta = torch.from_numpy(THETA)
+    kin = torch.tensor([TM.KIN_TRUE])
+
+    fl = tm.log_likelihood(theta)[1]
+    # 12 steps: 3 lagged blocks of 3 and a tail of 3, 2 Newton iterations
+    # and 1 reuse iteration: 6 builds and 12 more residuals, one for each
+    # of the 18 solves.
+    assert calls == {"rows": 12, "blocks": 6}
+    rows, jac, y0, fused = tm._lane_problem(kin)
+    assert isinstance(fused, mc.MarchKernels)
+    kw = dict(newton_iters=tm.newton_iters, pivot=tm.pivot, analytic_jac=jac,
+              jac_stride=tm.jac_stride, n_dense=tm._n_dense_eff,
+              reuse_iters=tm.reuse_iters, dense_tail=tm.dense_tail,
+              solver=tm.solver)
+    assert torch.equal(bdf_march_bl(rows, y0, tm._dts(), fused=fused, **kw),
+                       bdf_march_bl(rows, y0, tm._dts(), **kw))
+
+    calls.update(rows=0, blocks=0)
+    tracked = theta.clone().requires_grad_(True)
+    ll, fl_t = tm.log_likelihood(tracked)
+    torch.autograd.grad(ll.sum(), tracked)
+    assert calls == {"rows": 0, "blocks": 0}
+    assert torch.equal(fl_t.detach(), fl)
+    for mode in ("cd", "ad"):
+        m = dataclasses.replace(tm, jac_mode=mode)
+        assert m._lane_problem(kin)[3] is None
+        m.log_likelihood(theta)
+    assert tm._lane_problem(kin, pad_cols=1)[3] is None
+    padded = tm._flows_batch_bl(kin, pad_cols=1)
+    assert calls == {"rows": 0, "blocks": 0}
+    assert torch.equal(padded, tm._flows_batch_bl(kin))
+    y, const, alpha, h, flags, condv, kin_bl = _march_state()
+    f64 = mc.MarchKernels(flags, condv.double(), kin_bl.double())
+    assert not f64.takes(y.double(), const.double(), h)
+    assert not f64.takes(y, const, h)
+    f32 = mc.MarchKernels(flags, condv, kin_bl)
+    assert f32.takes(y, const, h)
+    assert f32.takes(y, const, torch.full((y.shape[-1],), h))
+    assert not f32.takes(y, const, torch.full((y.shape[-1],), h,
+                                              dtype=torch.float64))
+    assert not f32.takes(y.double(), const.double(), h)
+    assert not f32.takes(y.clone().requires_grad_(True), const, h)
+    with torch.no_grad():
+        assert f32.takes(y.clone().requires_grad_(True), const, h)
+
+
+def test_march_kernel_wrappers_on_the_cpu():
+    """On the CPU each wrapper is its plain version; an input that
+    autograd tracks is refused (the kernels have no backward), and a
+    device that is neither the CPU nor CUDA is an error."""
+    from smc_tpu_torch.ops import march_cuda as mc
+    args = _march_state()
+    y = args[0]
+    assert torch.equal(mc.march_rows(*args), mc.march_rows_plain(*args))
+    for g, w in zip(mc.march_blocks(*args), mc.march_blocks_plain(*args)):
+        assert torch.equal(g, w)
+    for fn in (mc.march_rows, mc.march_blocks):
+        with pytest.raises(ValueError, match="no backward"):
+            fn(y.clone().requires_grad_(True), *args[1:])
+        with pytest.raises(ValueError, match="unsupported device"):
+            fn(y.to("meta"), *args[1:])
+
+
+def test_march_kernel_constants():
+    """The model's constants compiled into csrc/march.cu are those of
+    models/methanation.py in float32, each ``constexpr float`` against its
+    Python value, and the stoichiometry and molar masses against SC and
+    MOLW, so the two copies cannot drift apart."""
+    import re
+    from pathlib import Path
+
+    src = (Path(TM.__file__).resolve().parent.parent / "csrc"
+           / "march.cu").read_text()
+    want = {"kR": TM.R_GAS, "kRcpR": 1.0 / TM.R_GAS, "kDisp": TM.DZ_DISP, "kRhos": TM.RHOS,
+            "kCps": TM.CPS, "kMinusHR": -TM.HR, "kCpg": TM.CPG,
+            "kKeff": TM.KEFF, "kKeff2": 2.0 * TM.KEFF,
+            "kWall": 2.0 * TM.U_HT / TM.DINT, "kRate": 5075e3,
+            "kGuard": 0.001, "kMega": 1e-6, "kMilli": 1e-3, "kKappa": 0.1}
+    got = dict(re.findall(r"constexpr float (k\w+) = ([-0-9.e+]+)f;", src))
+    assert set(got) == set(want)
+    for name, value in want.items():
+        assert np.float32(float(got[name])) == np.float32(value), name
+    for fn, values in (("sc", TM.SC), ("molw", TM.MOLW)):
+        body = re.search(rf"constexpr float {fn}\(int k\) \{{(.*?)\}}", src,
+                         re.S).group(1)
+        lits = [float(v) for v in re.findall(r"\? (-?[0-9.]+)f", body)]
+        lits.append(float(re.findall(r": (-?[0-9.]+)f;", body)[-1]))
+        assert np.array_equal(np.float32(lits), np.float32(values)), fn

@@ -59,7 +59,7 @@ def test_march_final_state_and_engine_options():
     the closed-form march's state."""
     _, tm = methanation_pair(NC, NX, n_steps=12, growth=1.6, jac_stride=3,
                              dense_tail=3)
-    rows, jac, y0 = tm._lane_problem(torch.tensor([TM.KIN_TRUE]))
+    rows, jac, y0, _ = tm._lane_problem(torch.tensor([TM.KIN_TRUE]))
     dts = tm._dts()
     # The three schemes differ only while Newton has not converged. On this
     # short schedule's large steps modified Newton converges linearly: after

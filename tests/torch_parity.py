@@ -216,12 +216,12 @@ def torch_march_final_state(tm, theta):
     theta = torch.as_tensor(theta)
     full = theta.new_tensor(tm.base_params).repeat(theta.shape[0], 1)
     full[:, list(tm.est_idx)] = theta
-    rows, jac, y0 = tm._lane_problem(full[:, :8])
+    rows, jac, y0, fused = tm._lane_problem(full[:, :8])
     return t_march(rows, y0, tm._dts(), newton_iters=tm.newton_iters,
                    pivot=tm.pivot, analytic_jac=jac,
                    jac_stride=tm.jac_stride, n_dense=tm._n_dense_eff,
                    reuse_iters=tm.reuse_iters, dense_tail=tm.dense_tail,
-                   solver=tm.solver).numpy()
+                   solver=tm.solver, fused=fused).numpy()
 
 
 def assert_same_run(got, want):
